@@ -189,13 +189,15 @@ def test_t_cap_truncates(setup):
     assert np.array_equal(cut[0][near], full[0][near])
 
 
-@pytest.mark.parametrize("kw", [dict(per_ray=True), dict(debug_emit_visits=True)])
+@pytest.mark.parametrize("kw", [dict(seed="seed"), dict(debug_emit_visits=True)])
 def test_unported_modes_raise(setup, kw):
+    if "seed" in kw:  # any seed hit record selects the seeded walk
+        kw = dict(seed=port_hit(setup, False))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_hit(setup, False, **kw)
 
 
 def test_cpu_walk_launches_no_kernel(setup):
-    before = T.culled_walk_cuda.launches
+    before = dict(T.culled_walk_cuda.launches)
     port_hit(setup, True, stream_cands=1024)
     assert T.culled_walk_cuda.launches == before

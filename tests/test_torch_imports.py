@@ -1,6 +1,7 @@
 """The port stands alone: no module of texir_code_tpu_torch, and not
 chip_smoke.py, imports jax or the JAX package texir_code_tpu (an AST scan;
-`texir_code_tpu_torch` itself shares that prefix and is allowed)."""
+`texir_code_tpu_torch` itself shares that prefix and is allowed), nor
+OpenCV, PIL or orbax, which the machine with the card does not have."""
 
 import ast
 import os
@@ -20,7 +21,8 @@ def _sources():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "optax", "texir_code_tpu")
+    return top in ("jax", "jaxlib", "flax", "optax", "texir_code_tpu", "cv2",
+                   "PIL", "orbax")
 
 
 def _imports(path):
@@ -54,5 +56,7 @@ def test_no_jax_imports(path):
 def test_forbidden_rule():
     assert _forbidden("jax.numpy") and _forbidden("texir_code_tpu.ops")
     assert _forbidden("texir_code_tpu")
+    assert _forbidden("cv2") and _forbidden("PIL.Image")
+    assert _forbidden("orbax.checkpoint")
     assert not _forbidden("texir_code_tpu_torch.ops.sampling")
-    assert not _forbidden("torch")
+    assert not _forbidden("torch") and not _forbidden("scipy.ndimage")

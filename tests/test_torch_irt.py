@@ -138,7 +138,7 @@ def _conf():
 
 def test_cli_irrt_end_to_end_cpu(apartment, tmp_path):
     path = _write_scene(apartment, str(tmp_path))
-    before = culled_walk_cuda.launches
+    before = dict(culled_walk_cuda.launches)
     rc = cli.main([
         "train", "--conf", _conf(), "--trainstage", "IrrT", "--irt_res", "24",
         "--exps_folder", str(tmp_path / "exps"), "--device", "cpu",
@@ -158,7 +158,7 @@ def test_cli_irrt_end_to_end_cpu(apartment, tmp_path):
 
 def test_cli_unported_stage_names_roadmap(tmp_path):
     with pytest.raises(SystemExit, match="ROADMAP.md queue A item 9"):
-        cli.main(["train", "--conf", _conf(), "--trainstage", "Mat"])
+        cli.main(["train", "--conf", _conf(), "--trainstage", "MatSyn"])
 
 
 def test_runner_unported_knob_raises(apartment, tmp_path):

@@ -1,13 +1,16 @@
-"""Synthetic two-room apartment scene for tests and the chip smoke run.
+"""Synthetic scenes for tests, the demo and the chip smoke run.
 
-A self-contained stand-in for the reference's proprietary scan data: a
-uv-atlased apartment (box room split by a divider wall with a doorway, plus
-clutter boxes) with emissive ceiling lamps and wall sconces baked into the
-HDR atlas (the TBL emitter).  This is the scene the IrrT bake benchmark runs
-(`make_apartment_scene(atlas_res=256, subdiv=24)`).
+Self-contained stand-ins for the reference's proprietary scan data, with
+known ground-truth materials and the emitters baked into the HDR atlas
+(the TBL emitter):
+  * `make_scene` — one uv-atlased box room with a ceiling lamp (the demo
+    and the small tests);
+  * `make_apartment_scene` — a box room split by a divider wall with a
+    doorway, plus clutter boxes, ceiling lamps and wall sconces: the bench
+    scene (`make_apartment_scene(atlas_res=256, subdiv=24)`).
 
-A copy of the JAX package's `data/synthetic.py` builder for this scene and
-the helpers it needs; outputs are identical for equal arguments.
+A copy of the JAX package's `data/synthetic.py` functions for these scenes
+and the helpers they need; outputs are identical for equal arguments.
 """
 
 from __future__ import annotations
@@ -29,6 +32,87 @@ def _cell_uv(face_idx: int, margin: float = 0.02, grid: int = 3) -> np.ndarray:
     v1 = (cy + 1) / 2.0 - margin
     return np.array([[u0, v0], [u1, v0], [u1, v1], [u0, v1]], np.float32)
 
+
+def make_room_mesh(
+    size: Tuple[float, float, float] = (4.0, 3.0, 5.0),
+    subdiv: int = 1,
+) -> Mesh:
+    """Closed box room, inward-facing normals, one chart per wall.
+
+    Args:
+        subdiv: tessellate each wall into subdiv×subdiv quads
+            (12·subdiv² triangles total) — scan meshes are dense, so
+            benchmarks use subdiv ≫ 1 to give the BVH realistic depth.
+    """
+    sx, sy, sz = size
+    lo = np.array([0.0, 0.0, 0.0], np.float32)
+    hi = np.array([sx, sy, sz], np.float32)
+
+    def wall(corners):
+        return np.asarray(corners, np.float32)
+
+    # each wall: 4 corners counter-clockwise when seen from inside
+    walls = [
+        wall([[lo[0], lo[1], lo[2]], [hi[0], lo[1], lo[2]],
+              [hi[0], lo[1], hi[2]], [lo[0], lo[1], hi[2]]]),   # floor (+y normal)
+        wall([[lo[0], hi[1], lo[2]], [lo[0], hi[1], hi[2]],
+              [hi[0], hi[1], hi[2]], [hi[0], hi[1], lo[2]]]),   # ceiling (-y)
+        wall([[lo[0], lo[1], lo[2]], [lo[0], hi[1], lo[2]],
+              [hi[0], hi[1], lo[2]], [hi[0], lo[1], lo[2]]]),   # back z=0 (+z)
+        wall([[lo[0], lo[1], hi[2]], [hi[0], lo[1], hi[2]],
+              [hi[0], hi[1], hi[2]], [lo[0], hi[1], hi[2]]]),   # front z=sz (-z)
+        wall([[lo[0], lo[1], lo[2]], [lo[0], lo[1], hi[2]],
+              [lo[0], hi[1], hi[2]], [lo[0], hi[1], lo[2]]]),   # left x=0 (+x)
+        wall([[hi[0], lo[1], lo[2]], [hi[0], hi[1], lo[2]],
+              [hi[0], hi[1], hi[2]], [hi[0], lo[1], hi[2]]]),   # right (-x)
+    ]
+
+    vertices, faces, uvs, uv_faces = [], [], [], []
+    for k, corners in enumerate(walls):
+        uv4 = _cell_uv(k)
+        # bilinear lattice over the wall and its uv chart
+        n = subdiv
+        for iy in range(n + 1):
+            for ix in range(n + 1):
+                s, t = ix / n, iy / n
+                p = _quad_point(corners, s, t)
+                q = (
+                    (1 - s) * (1 - t) * uv4[0]
+                    + s * (1 - t) * uv4[1]
+                    + s * t * uv4[2]
+                    + (1 - s) * t * uv4[3]
+                )
+                vertices.append(p.astype(np.float32))
+                uvs.append(q.astype(np.float32))
+        base = len(vertices) - (n + 1) * (n + 1)
+        ubase = len(uvs) - (n + 1) * (n + 1)
+        for iy in range(n):
+            for ix in range(n):
+                a = base + iy * (n + 1) + ix
+                b = a + 1
+                c = a + (n + 1) + 1
+                d = a + (n + 1)
+                ua, ub, uc, ud = (
+                    ubase + iy * (n + 1) + ix,
+                    ubase + iy * (n + 1) + ix + 1,
+                    ubase + (iy + 1) * (n + 1) + ix + 1,
+                    ubase + (iy + 1) * (n + 1) + ix,
+                )
+                faces.append([a, b, c])
+                faces.append([a, c, d])
+                uv_faces.append([ua, ub, uc])
+                uv_faces.append([ua, uc, ud])
+
+    mesh = Mesh(
+        vertices=np.asarray(vertices, np.float32),
+        faces=np.asarray(faces, np.int32),
+        uvs=np.asarray(uvs, np.float32),
+        uv_faces=np.asarray(uv_faces, np.int32),
+    )
+    # scan meshes of rooms are inward-facing; shading offsets p+ε·n assume it
+    mesh.orient_faces_toward((lo + hi) / 2.0)
+    mesh.compute_vertex_normals()
+    return mesh
 
 
 def _chart_slice(face_idx: int, res: int, grid: int = 3) -> Tuple[slice, slice]:
@@ -66,6 +150,68 @@ class SyntheticScene:
             ],
             axis=-1,
         ).astype(np.float32)
+
+
+def make_scene(
+    atlas_res: int = 96,
+    lamp_radiance: float = 20.0,
+    size: Tuple[float, float, float] = (4.0, 3.0, 5.0),
+    seed: int = 666,
+    subdiv: int = 1,
+) -> SyntheticScene:
+    """Build the synthetic room.
+
+    The HDR atlas approximates an already-lit scan: walls carry moderate
+    radiosity values per wall color; the ceiling chart contains a small very
+    bright lamp patch (the only texels above the VHL threshold).
+    """
+    rng = np.random.default_rng(seed)
+    mesh = make_room_mesh(size, subdiv=subdiv)
+
+    wall_colors = np.array(
+        [
+            [0.60, 0.55, 0.50],  # floor
+            [0.85, 0.85, 0.85],  # ceiling
+            [0.70, 0.30, 0.30],  # back (red-ish)
+            [0.30, 0.70, 0.35],  # front (green-ish)
+            [0.75, 0.75, 0.45],  # left
+            [0.45, 0.55, 0.80],  # right
+        ],
+        np.float32,
+    )
+    wall_rough = np.array([0.5, 0.7, 0.35, 0.6, 0.25, 0.45], np.float32)
+
+    r = atlas_res
+    hdr = np.zeros((r, r, 3), np.float32)
+    gt_albedo = np.zeros((r, r, 3), np.float32)
+    gt_rough = np.full((r, r, 1), 0.5, np.float32)
+    seg = np.zeros((r, r), np.int32)
+    for k in range(6):
+        rows, cols = _chart_slice(k, r)
+        # mild spatial variation so texture gradients are informative
+        noise = 1.0 + 0.1 * rng.standard_normal((rows.stop - rows.start,
+                                                 cols.stop - cols.start, 1))
+        hdr[rows, cols] = wall_colors[k] * 0.3 * noise
+        gt_albedo[rows, cols] = wall_colors[k]
+        gt_rough[rows, cols] = wall_rough[k]
+        seg[rows, cols] = k
+
+    # lamp: central patch of the ceiling chart (face 1)
+    rows, cols = _chart_slice(1, r)
+    h0 = (rows.start + rows.stop) // 2
+    w0 = (cols.start + cols.stop) // 2
+    lamp = (slice(h0 - r // 24, h0 + r // 24), slice(w0 - r // 24, w0 + r // 24))
+    hdr[lamp[0], lamp[1]] = lamp_radiance
+
+    return SyntheticScene(
+        mesh=mesh,
+        hdr_texture=hdr,
+        gt_albedo=gt_albedo,
+        gt_roughness=gt_rough,
+        seg_texture=seg,
+        lamp_radiance=lamp_radiance,
+        size=size,
+    )
 
 
 def make_roomseg(

@@ -1,6 +1,8 @@
 """Culled cluster walk — closest hits sub-linear in scene size.
 
-The port of the JAX package's `ops/pallas_culled.py` on its bake path:
+The port of the JAX package's `ops/pallas_culled.py` (the unseeded walk:
+the bake's shared-origin wedge rows, the G-buffer's pixel rows and the
+specular trace's per-ray rows):
 
   1. **Direction wedges.**  Each fan's S hemisphere directions are sorted
      by octant and split into G chunks ("wedges") of R = S/G rays, so a
@@ -26,6 +28,7 @@ nothing in it is Pallas.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 from typing import Optional
@@ -48,9 +51,9 @@ _BARY_EPS = 1e-7
 _ROW_PAD = 128          # cluster rows padded to 128 columns
 _PRIM_ROWS = 8          # prims3 is [C, 8, 128] int32, as the JAX package's
 
-# modes of the TPU kernel that this slice does not port yet (ROADMAP.md,
-# queue B, item B1 order (c)-(e))
-_TODO_B1 = "ROADMAP.md queue B, B1 (per-ray, seeded and debug modes)"
+# modes of the TPU kernel that are not ported yet (ROADMAP.md, queue B,
+# item B1 order (d)-(e))
+_TODO_B1 = "ROADMAP.md queue B, B1 (seeded and debug modes)"
 
 
 @dataclasses.dataclass
@@ -403,7 +406,7 @@ def cull_blocks(
 def culled_walk_plain(
     count, cand, dist, t_cap: float, origins, dx, dy, dz, rows3, prims3,
     er: int, t_min: float = 0.0, emit_uv: bool = False,
-    emit_prim: bool = True,
+    emit_prim: bool = True, per_ray: bool = False,
 ):
     """The walk in plain PyTorch: the CPU path and the kernel's oracle.
 
@@ -419,7 +422,10 @@ def culled_walk_plain(
     dev = dx.device
     shape = (g, er, r)
     d = [a.reshape(shape) for a in (dx, dy, dz)]
-    o = [origins[:, k].reshape(g, er, 1) for k in range(3)]
+    if per_ray:
+        o = [origins[k].reshape(shape) for k in range(3)]
+    else:
+        o = [origins[:, k].reshape(g, er, 1) for k in range(3)]
     t_best = torch.full(shape, float("inf"), device=dev)
     prim = torch.full(shape, -1, dtype=torch.int32, device=dev)
     u_best = torch.zeros(shape, device=dev)
@@ -511,18 +517,27 @@ def _culled_walk_lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.restype = ctypes.c_int
         fn.argtypes = [p, p, p, i, i, f, f, p, p, p, p, i, i, p, p, i, i, i,
-                       p, p, p, p, p]
+                       i, p, p, p, p, p]
     return lib
+
+
+def walk_mode(per_ray: bool, emit_uv: bool, emit_prim: bool) -> str:
+    """Name of a kernel mode, as `culled_walk_cuda.launches` counts it:
+    'shared' or 'per_ray' origins, then '_uv' and/or '_prim' outputs (the
+    bake runs 'shared_uv', the G-buffer 'shared_prim', the specular trace
+    'per_ray_uv')."""
+    name = "per_ray" if per_ray else "shared"
+    return name + ("_uv" if emit_uv else "") + ("_prim" if emit_prim else "")
 
 
 def culled_walk_cuda(
     count, cand, dist, t_cap: float, origins, dx, dy, dz, rows3, prims3,
     er: int, t_min: float = 0.0, emit_uv: bool = False,
-    emit_prim: bool = True,
+    emit_prim: bool = True, per_ray: bool = False,
 ):
     """Launch `csrc/culled_walk.cu` on the current stream (see culled_walk).
 
-    Adds one to `culled_walk_cuda.launches` per launch."""
+    Adds one to `culled_walk_cuda.launches[walk_mode(...)]` per launch."""
     dev = dx.device
     if dev.type != "cuda":
         raise ValueError(f"culled_walk_cuda needs CUDA tensors, got {dev}")
@@ -535,7 +550,13 @@ def culled_walk_cuda(
     _check("count", count, torch.int32, (g,), dev)
     _check("cand", cand, torch.int32, (g, c), dev)
     _check("dist", dist, torch.float32, (g, c), dev)
-    _check("origins", origins, torch.float32, (n_rows, 3), dev)
+    if per_ray:
+        # per-ray origins: three SoA planes [3, G*er, R]
+        _check("origins (per_ray: [3, rows, R])", origins, torch.float32,
+               (3, n_rows, r), dev)
+    else:
+        _check("origins (shared: [rows, 3])", origins, torch.float32,
+               (n_rows, 3), dev)
     for name, a in (("dx", dx), ("dy", dy), ("dz", dz)):
         _check(name, a, torch.float32, (n_rows, r), dev)
     _check("rows3", rows3, torch.float32, (rows3.shape[0], lb, _ROW_PAD), dev)
@@ -559,22 +580,24 @@ def culled_walk_cuda(
             count.data_ptr(), cand.data_ptr(), dist.data_ptr(), g, c,
             float(t_cap), float(t_min), origins.data_ptr(), dx.data_ptr(),
             dy.data_ptr(), dz.data_ptr(), r, er, rows3.data_ptr(),
-            prims3.data_ptr(), lb, int(emit_uv), int(emit_prim),
-            t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(), stream,
+            prims3.data_ptr(), lb, int(per_ray), int(emit_uv),
+            int(emit_prim), t.data_ptr(), prim.data_ptr(), u.data_ptr(),
+            v.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"culled_walk launch failed: cudaError {err}")
-    culled_walk_cuda.launches += 1
+    culled_walk_cuda.launches[walk_mode(per_ray, emit_uv, emit_prim)] += 1
     return t, prim, u, v
 
 
-culled_walk_cuda.launches = 0
+# launches per kernel mode (walk_mode); callers reset it with .clear()
+culled_walk_cuda.launches = collections.Counter()
 
 
 def culled_walk(
     count, cand, dist, t_cap: float, origins, dx, dy, dz, rows3, prims3,
     er: int, t_min: float = 0.0, emit_uv: bool = False,
-    emit_prim: bool = True,
+    emit_prim: bool = True, per_ray: bool = False,
 ):
     """Closest hits of ray rows over per-group candidate cluster lists.
 
@@ -583,7 +606,8 @@ def culled_walk(
             group's candidate clusters nearest-first (cull_blocks) and
             their sorted lower bounds on t.
         t_cap: walk-stop distance (exit threshold cap).
-        origins [G*er, 3] float32: one shared origin per row.
+        origins: [G*er, 3] float32, one shared origin per row; with
+            per_ray, [3, G*er, R] float32, one origin per ray.
         dx, dy, dz [G*er, R] float32: directions; rows g*er..(g+1)*er-1
             form exit group g.
         rows3 [C', lb, 128] float32, prims3 [C', 8, 128] int32: clusters.
@@ -595,7 +619,7 @@ def culled_walk(
     On CUDA tensors this launches the CUDA kernel (culled_walk_cuda); on
     CPU tensors it runs culled_walk_plain."""
     args = (count, cand, dist, t_cap, origins, dx, dy, dz, rows3, prims3, er,
-            t_min, emit_uv, emit_prim)
+            t_min, emit_uv, emit_prim, per_ray)
     if dx.device.type == "cuda":
         return culled_walk_cuda(*args)
     if dx.device.type == "cpu":
@@ -623,7 +647,8 @@ def cast_fans_culled(
     """Closest-hit trace of wedge rows with culled, early-exiting clusters.
 
     Args:
-        origins: 3×[T'] per-row shared origins.
+        origins: 3×[T'] per-row shared origins, or with per_ray 3×[T', R]
+            per-ray origins (culling then uses per-row origin boxes).
         dirs: 3×[T', R] directions; rows should be direction-coherent (see
             sort_dirs_octant / wedge_rows).
         fan_block: rows per block; the rows are zero-padded to a multiple.
@@ -638,27 +663,36 @@ def cast_fans_culled(
         stream_cands: accepted for signature parity; on the GPU the
             candidate tables live in device memory anyway, so it changes
             nothing.
-        per_ray / seed / proxy / debug_emit_visits: not ported yet.
+        seed / proxy / debug_emit_visits: not ported yet.
     Returns:
         RayHit of shape [T', R] — exact closest hits (when t_cap_frac
         covers the scene).
     """
     del stream_cands  # no shared-memory table limit to stream around
-    if per_ray or seed is not None or proxy is not None or debug_emit_visits:
+    if seed is not None or proxy is not None or debug_emit_visits:
         raise NotImplementedError(
-            f"cast_fans_culled: per_ray/seed/proxy/debug_emit_visits are "
-            f"not ported yet ({_TODO_B1})"
+            f"cast_fans_culled: seed/proxy/debug_emit_visits are not ported "
+            f"yet ({_TODO_B1})"
         )
     tp, r = dirs[0].shape
     tf = fan_block
     t_pad = (-tp) % tf
     o_rows, d = tuple(origins), tuple(dirs)
     if t_pad:
-        o_rows = tuple(torch.nn.functional.pad(a, (0, t_pad)) for a in o_rows)
+        pad_o = (0, 0, 0, t_pad) if per_ray else (0, t_pad)
+        o_rows = tuple(torch.nn.functional.pad(a, pad_o) for a in o_rows)
         d = tuple(torch.nn.functional.pad(a, (0, 0, 0, t_pad)) for a in d)
+    if per_ray:
+        # the groups' origin boxes widen by each row's spread (conservative)
+        cull_lo = tuple(a.amin(dim=1) for a in o_rows)
+        cull_hi = tuple(a.amax(dim=1) for a in o_rows)
+        o_pack = torch.stack(o_rows, dim=0).contiguous()  # [3, T', R]
+    else:
+        cull_lo = cull_hi = o_rows
+        o_pack = torch.stack(o_rows, dim=-1).contiguous()  # [T', 3]
     er = exit_rows if (exit_rows and tf % exit_rows == 0) else tf
     cand, count, dist = cull_blocks(
-        scene, o_rows, o_rows, d, er, occluders=occluders
+        scene, cull_lo, cull_hi, d, er, occluders=occluders
     )
     g = (tp + t_pad) // er
     cc = scene.num_clusters
@@ -668,11 +702,10 @@ def cast_fans_culled(
     # origins): no real hit can be farther, so miss rays can't pin the exit
     cap_frac = 1.05 if t_cap_frac is None else t_cap_frac
     t_cap = float(np.float32(cap_frac) * np.float32(scene.diameter))
-    o_pack = torch.stack(o_rows, dim=-1).contiguous()
     t, prim, u, v = culled_walk(
         count.reshape(g).contiguous(), cand.reshape(g, cc).contiguous(),
         dist.reshape(g, cc).contiguous(), t_cap, o_pack,
         *(a.contiguous() for a in d), scene.rows3, scene.prims3, er,
-        t_min=t_min, emit_uv=emit_uv, emit_prim=emit_prim,
+        t_min=t_min, emit_uv=emit_uv, emit_prim=emit_prim, per_ray=per_ray,
     )
     return RayHit(t=t[:tp], prim=prim[:tp], u=u[:tp], v=v[:tp])

@@ -219,3 +219,17 @@ def generate_dir_soa(
         v[k][:, None] * sp + n[k][:, None] * cos_theta + u[k][:, None] * cp
         for k in range(3)
     )
+
+
+def reflect_soa(view: Vec3s, half: Vec3s):
+    """SoA reflect: view 3×[B], half 3×[B, S] → (light 3×[B, S], vdh [B, S]).
+
+    Matches reference models/mat_nvdiffrast.py:235-236:
+    ``l = 2·(v·h)·h - v`` with v·h clamped to [0, 1]."""
+    vdh = (
+        half[0] * view[0][:, None]
+        + half[1] * view[1][:, None]
+        + half[2] * view[2][:, None]
+    ).clamp(0.0, 1.0)
+    light = tuple(2.0 * vdh * half[k] - view[k][:, None] for k in range(3))
+    return light, vdh

@@ -6,6 +6,7 @@ Reproduces the reference's exp management (trainer/train_material.py:62-94):
         plots/
         checkpoints/ModelParameters/
         runconf.conf                           (config snapshot)
+        scalars.tsv                            (ExperimentDir.writer())
 
 plus `--is_continue [--timestamp]` resume discovery (exp_runner.py:37-42) and
 the global seed (666, train_material.py:87-89).
@@ -53,6 +54,26 @@ class ExperimentDir:
         os.makedirs(self.checkpoints_dir, exist_ok=True)
         if conf_path and os.path.exists(conf_path):
             shutil.copy(conf_path, os.path.join(self.root, "runconf.conf"))
+
+    def writer(self) -> "ScalarWriter":
+        """Scalar log of the run (the reference's tensorboardX writer,
+        :81-82): one `tag<TAB>step<TAB>value` line per scalar in
+        <root>/scalars.tsv.  Close it when the run ends."""
+        return ScalarWriter(os.path.join(self.root, "scalars.tsv"))
+
+
+class ScalarWriter:
+    """Appends scalars to a tab-separated text file."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._f = open(path, "a")
+
+    def add_scalar(self, tag: str, value: float, step: int) -> None:
+        self._f.write(f"{tag}\t{int(step)}\t{float(value)!r}\n")
+
+    def close(self) -> None:
+        self._f.close()
 
 
 def seed_everything(seed: int = 666) -> torch.Generator:
