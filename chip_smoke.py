@@ -6,56 +6,75 @@
 It drives the port's main path on two scenes of the JAX package's bench:
 the apartment (make_apartment_scene(atlas_res=256, subdiv=24)) and the
 multi-room building (make_building_scene(atlas_res=256, subdiv=28), 104,076
-triangles): export the scan, bake its IrrT, train its materials.  Phases
-(any failure exits non-zero; nothing is caught):
+triangles): export the scan, bake its IrrT, train its materials; on the
+apartment also the FanScene-only configuration (no ClusterScene: every ray
+against every leaf row, kernels B2/B3) and the re-render error tester.
+Phases (any failure exits non-zero; nothing is caught):
   1. device: torch's view of the card, and nvidia-smi's name and power limit;
-  2. build: every CUDA kernel of the port from csrc/, one nvcc each, all
-     started together;
-  3. kernels: each kernel mode against its plain PyTorch version on the
-     card at the shapes the main path gives it, with times and the work
-     bound — the bake's wedge rows (1024 texels × 2048 spp, lb 4), and the
-     Mat step's G-buffer of one view (98,304 pixel rays, lb 8) and that
-     view's 1,572,864 specular rays (per-ray origins, importance
+  2. build: every CUDA kernel of the port from csrc/ (culled_walk,
+     fan_stream), one nvcc each, all started together;
+  3. kernels: each culled-walk mode against its plain PyTorch version on
+     the card at the shapes the main path gives it, with times and the
+     work bound — the bake's wedge rows (1024 texels × 2048 spp, lb 4),
+     and the Mat step's G-buffer of one view (98,304 pixel rays, lb 8) and
+     that view's 1,572,864 specular rays (per-ray origins, importance
      directions at roughness 0.1, lb 8), all with occluders;
-  4. building-kernels: the same at the building's shapes — one bake
+  4. fan-kernels: the exhaustive stream's four modes against
+     fan_stream_plain — the FanScene-only bake's rows (1024 texels × 2048
+     spp, emit_uv), the view's G-buffer (t_min 1e-6) and its specular
+     rays (emit_uv and prim) — and B2 against B1 on the bake rows;
+  5. visits: B1's debug_emit_visits telemetry on the bake rows through
+     cast_fans_culled, against the plain walk;
+  6. building-kernels: the walk at the building's shapes — one bake
      batch's wedge rows (4096 texels, fb 16, er 8, lb 4) unseeded and
      seeded by the k-1024 occlusion proxy, its two-pass trace (cut 0.25)
      and pass-2 stragglers, and one view's G-buffer and specular rays from
      the bench camera seeded by the k-512 proxy (lb 8); seeded, unseeded,
      two-pass and single-pass hits must agree;
-  5. export: the apartment written to the reference's dataset layout by
+  7. export: the apartment written to the reference's dataset layout by
      the port's exporter (4 views, pano 256×512);
-  6. slice: `train --trainstage IrrT` through the port's CLI on the
+  8. slice: `train --trainstage IrrT` through the port's CLI on the
      exported mesh at --irt_res 1024 and 2048 spp (it writes the irt.hdr
      the Mat stage reads);
-  7. mat: `train --trainstage Mat --max_epochs 1` through the port's CLI
+  9. mat: `train --trainstage Mat --max_epochs 1` through the port's CLI
      with the bench atlases (albedo 2048², roughness 4096²) and
      sample_light [32, 16]: seconds per step of each substage, stage
      seconds with set-up, launches per kernel mode;
-  8. profile: one full bake batch under torch.profiler;
-  9. mat-profile: one cached-view stage-2 step (forward, backward, Adam,
+ 10. fan-slice: the apartment's FanScene-only bake at 1024² × 2048 spp
+     (IrradianceTextureBaker(tbl, fan_scene=fan, max_leaves=...)), held
+     against the slice's culled bake of the same seed;
+ 11. fan-mat: stage-2 steps of the Mat model with cluster_scene = None
+     (and two with the exact specular fetch), and one step against the
+     culled model's;
+ 12. error: `test --teststage Error` through the port's CLI on the export
+     and the atlases of 9 (sample_light [1024, 256], shade_chunk 4096),
+     then one view by the FanScene-only model against the culled one;
+ 13. profile: one full bake batch under torch.profiler;
+ 14. mat-profile: one cached-view stage-2 step (forward, backward, Adam,
      clamp) under torch.profiler, with the sampler backward's scatter
      named apart;
- 10. building-export: the building with one camera per room (9 views);
- 11. building-proxy: its IrrT at --irt_res 256 without and with
+ 15. building-export: the building with one camera per room (9 views);
+ 16. building-proxy: its IrrT at --irt_res 256 without and with
      train.bake_proxy_k=1024: the raw bakes must be equal;
- 12. building-slice: its IrrT at --irt_res 1024 (2048 spp) with fb 16,
+ 17. building-slice: its IrrT at --irt_res 1024 (2048 spp) with fb 16,
      er 8, train.two_pass_cut=0.25 and occluders (bench.py's big scene);
- 13. building-mat: its Mat stage with the apartment's settings plus
+ 18. building-mat: its Mat stage with the apartment's settings plus
      models.render.proxy_k=512 and spec_two_pass_cut=0.25;
- 14. building-profile: one two-pass bake batch and one cached-view
+ 19. building-profile: one two-pass bake batch and one cached-view
      stage-2 step (knobs off, two-pass only, proxy only) under
      torch.profiler;
- 15. reference: the card's bake_batch against the CPU's;
- 16. mat-reference: one stage-2 step on the card against the CPU at pano
+ 20. reference: the card's bake_batch against the CPU's;
+ 21. mat-reference: one stage-2 step on the card against the CPU at pano
      64×128 with full atlases and the same injected sample shifts;
- 17. building-reference: the card's two-pass + proxy bake_batch against
+ 22. error-reference: one view's stage-2 eval render (shade_chunk 4096)
+     on the card against the CPU at pano 64×128, spp 16;
+ 23. building-reference: the card's two-pass + proxy bake_batch against
      the CPU's on 64 building texels.
-Kernel launch counts are zeroed just before each main-path run (6, 7,
-each run of 11, 12, 13) and read just after; every kernel mode of that run
-must have run.  Then a `{"kernels": [...]}` line and, last, the
-`{"ok": true, ...}` line.  Without a CUDA device, or without the package
-beside it, it exits non-zero and prints no result.
+Kernel launch counts are zeroed just before each main-path run (5, 8, 9,
+10, 11, 12, each run of 16, 17, 18) and read just after; every kernel
+mode of that run must have run.  Then a `{"kernels": [...]}` line and,
+last, the `{"ok": true, ...}` line.  Without a CUDA device, or without
+the package beside it, it exits non-zero and prints no result.
 """
 
 import json
@@ -98,6 +117,14 @@ PROXY_IRT_RES = 256  # the proxy-on/off bakes
 BUILDING_CAM = (12.0, 1.5, 7.2)
 KERNEL_SOURCE = "texir_code_tpu_torch/csrc/culled_walk.cu"
 KERNEL_REPLACES = "texir_code_tpu/ops/pallas_culled.py:367"
+VISITS_REPLACES = "texir_code_tpu/ops/pallas_culled.py:663"
+FAN_SOURCE = "texir_code_tpu_torch/csrc/fan_stream.cu"
+FAN_REPLACES = "texir_code_tpu/ops/pallas_fan.py:63"
+FAN_MODES = ("shared_uv", "shared_prim", "per_ray_uv", "per_ray_prim")
+# the tester (configs/test_synthetic.conf: the reference's eval spp)
+EVAL_SAMPLE_LIGHT = (1024, 256)
+EVAL_CHUNK = 4096
+FAN_MAT_STEPS = 6
 
 
 def log(msg=""):
@@ -120,13 +147,15 @@ def phase_device(torch):
 def phase_build():
     from texir_code_tpu_torch.ops import cuda_build
 
+    names = ["culled_walk", "fan_stream"]
     t0 = time.time()
-    cuda_build.build(["culled_walk"])
+    cuda_build.build(names)  # one nvcc per source, all started together
     dt = time.time() - t0
-    log(f"[build] culled_walk built in {dt:.1f} s")
-    for line in cuda_build.build_log("culled_walk").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    log(f"[build] {', '.join(names)} built in {dt:.1f} s")
+    for name in names:
+        for line in cuda_build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {name}: {line.strip()}")
 
 
 def bench_scene(dev):
@@ -226,6 +255,32 @@ def timed_once(torch, fn):
     return out, start.elapsed_time(end)
 
 
+def walk_bound(torch, inp, t_final):
+    """The least time the card could take for a walk on these inputs:
+    (bound_ms, ops_ms, bytes_ms, visits, tests).  The work this run's data
+    needs: every ray tests each candidate whose bound is below its final t
+    (capped), lb*4 triangles each, at FLOPS_PER_TEST; the bytes read each
+    input once and write each output once."""
+    rays = inp["dx"].numel()
+    lb = inp["rows3"].shape[1]
+    t_fin = torch.clamp_max(t_final, inp["t_cap"])
+    g = inp["count"].numel()
+    need = torch.searchsorted(inp["dist"], t_fin.reshape(g, -1).contiguous())
+    need = torch.minimum(need, inp["count"][:, None].long())
+    visits = int(need.sum())
+    tests = visits * lb * 4
+    ops_ms = tests * FLOPS_PER_TEST / PEAK_FP32_FLOPS * 1e3
+    nbytes = sum(
+        inp[k].numel() * inp[k].element_size()
+        for k in ("count", "cand", "dist", "origins", "dx", "dy", "dz",
+                  "rows3")
+    ) + (inp["prims3"].numel() * 4 if inp["emit_prim"] else 0) + rays * 16
+    if inp.get("seed") is not None:  # t, u, v and, with emit_prim, prim
+        nbytes += rays * (16 if inp["emit_prim"] else 12)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ops_ms, bytes_ms, visits, tests
+
+
 def check_walk(torch, label, inp, plain_reps=2, name=None):
     """culled_walk_cuda against culled_walk_plain on the same inputs: the
     agreement rule of the bake phase (t within TOL, no t mismatch, ties at
@@ -253,24 +308,7 @@ def check_walk(torch, label, inp, plain_reps=2, name=None):
         hp, plain_ms = timed_once(torch, lambda: culled_walk_plain(**inp))
     err, ties, t_bad, prim_bad = compare_hits(hk, hp, inp["emit_prim"])
     kernel_ms = cuda_ms(torch, lambda: culled_walk_cuda(**inp), 20)
-    # work this run's data needs: every ray must test each candidate whose
-    # bound is below its final t (capped), lb*4 triangles each
-    t_fin = torch.clamp_max(hp[0], inp["t_cap"])
-    g = inp["count"].numel()
-    need = torch.searchsorted(inp["dist"], t_fin.reshape(g, -1).contiguous())
-    need = torch.minimum(need, inp["count"][:, None].long())
-    visits = int(need.sum())
-    tests = visits * lb * 4
-    ops_ms = tests * FLOPS_PER_TEST / PEAK_FP32_FLOPS * 1e3
-    nbytes = sum(
-        inp[k].numel() * inp[k].element_size()
-        for k in ("count", "cand", "dist", "origins", "dx", "dy", "dz",
-                  "rows3")
-    ) + (inp["prims3"].numel() * 4 if inp["emit_prim"] else 0) + rays * 16
-    if seed is not None:  # t, u, v and, with emit_prim, prim per ray
-        nbytes += rays * (16 if inp["emit_prim"] else 12)
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
+    bound_ms, ops_ms, bytes_ms, visits, tests = walk_bound(torch, inp, hp[0])
     log(f"[kernels] culled_walk {mode} ({label}, lb {lb}): {rays} rays, "
         f"{visits} cluster visits needed ({visits / rays:.2f}/ray, "
         f"{tests} triangle tests)")
@@ -398,6 +436,12 @@ def phase_mat_kernels(torch, dev, syn):
     spec = walk_args(cs, so, sd, fan_block=8, exit_rows=1, per_ray=True,
                      emit_uv=True, occluders=occ)
     out["per_ray_uv"] = check_walk(torch, "specular rays of one view", spec)[0]
+    # the exact specular fetch (specular_fetch = "exact"): prim + barycentrics
+    spec = walk_args(cs, so, sd, fan_block=8, exit_rows=1, per_ray=True,
+                     emit_uv=False, emit_prim=True, occluders=occ)
+    out["per_ray_prim"] = check_walk(
+        torch, "specular rays of one view, exact fetch", spec,
+        plain_reps=0)[0]
     return out
 
 
@@ -630,6 +674,30 @@ def profile_kernels(prof):
     return kern, launches
 
 
+def profile_once(torch, tag, label, fn, top=6):
+    """Where one call of fn spends the card's time: host clock around a
+    warm run, then kernel device time by name from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern, launches = profile_kernels(prof)
+    busy = sum(kern.values())
+    log(f"[{tag}] profile of {label}: wall {wall_ms:.2f} ms (unprofiled); "
+        f"{launches} kernel launches, {busy:.2f} ms on the card; idle share "
+        + (f"{max(0.0, 1 - busy / wall_ms):.3f}" if busy else "not measured"))
+    for name, ms in sorted(kern.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"[{tag}]   {ms:9.3f} ms  {name[:90]}")
+
+
 def phase_mat_profile(torch, path_mesh, tmp):
     """One cached-view stage-2 step (forward, backward, Adam, clamp) of the
     Mat runner on the bench view, under torch.profiler."""
@@ -738,6 +806,562 @@ def phase_mat_reference(torch, dev, syn):
         f"{rel:.3g}); gradient rel L2 albedo {ga:.3g}, roughness {gr:.3g}")
     if not (rel <= 1e-4 and ga <= 1e-3 and gr <= 1e-3):
         raise SystemExit("the Mat step on the card disagrees with the CPU")
+
+
+# ---------------------------------------------------------------------------
+# the FanScene-only configuration: kernels B2/B3 (the exhaustive leaf
+# stream), B1's visit telemetry, and the re-render error tester
+# ---------------------------------------------------------------------------
+
+
+def fan_scene(mesh):
+    """A mesh's FanScene (uv rows), as the runners pack it."""
+    from texir_code_tpu_torch.geometry.bvh import build_bvh
+    from texir_code_tpu_torch.ops.fan_raycast import FanScene
+
+    fb = build_bvh(mesh.vertices, mesh.faces)
+    return FanScene.from_flat(fb, triangle_uvs=mesh.triangle_uvs())
+
+
+def check_fan(torch, label, rows, origins, d, t_min, emit_uv, per_ray):
+    """fan_stream_cuda against fan_stream_plain on the same inputs: t and
+    prim bit-equal, u and v bit-equal or within 1e-6; CUDA-event times and
+    the bound (every ray tests every real triangle).  Returns the kernel's
+    row of the JSON line (launches filled in later) and its hits."""
+    from texir_code_tpu_torch.ops.pallas_fan import (
+        fan_stream_cuda,
+        fan_stream_plain,
+        stream_mode,
+    )
+
+    args = (rows, origins, *d)
+    kw = dict(t_min=t_min, emit_uv=emit_uv, per_ray=per_ray)
+    mode = stream_mode(per_ray, emit_uv)
+    hk = fan_stream_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    hp, plain_ms = timed_once(torch, lambda: fan_stream_plain(*args, **kw))
+    t_bad = int((hk[0] != hp[0]).sum() - (torch.isnan(hk[0])
+                                           & torch.isnan(hp[0])).sum())
+    prim_bad = int((hk[1] != hp[1]).sum())
+    duv = max(float((hk[2] - hp[2]).abs().max()),
+              float((hk[3] - hp[3]).abs().max()))
+    kernel_ms = cuda_ms(torch, lambda: fan_stream_cuda(*args, **kw), 5)
+    rays = d[0].numel()
+    # the closest hit needs the real triangles only: padded slots (prim
+    # -1, zero normal) never hit
+    slots = int((rows[:, 8:12].view(torch.int32) >= 0).sum())
+    tests = rays * slots
+    ops_ms = tests * FLOPS_PER_TEST / PEAK_FP32_FLOPS * 1e3
+    nbytes = (rows.numel() * 4 + origins.numel() * 4 + rays * 12
+              + rays * 16)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    log(f"[fan-kernels] fan_stream {mode} ({label}): {rays} rays x "
+        f"{slots} triangles in {rows.shape[0]} leaf rows = {tests} triangle "
+        f"tests, t_min {t_min}")
+    log(f"[fan-kernels]   t mismatches {t_bad}; prim mismatches {prim_bad}; "
+        f"max |du|,|dv| {duv:.3g}; hit "
+        f"{float(torch.isfinite(hk[0]).float().mean()):.4f}")
+    log(f"[fan-kernels]   kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.2f}  "
+        f"bound_ms {bound_ms:.4f} (ops {ops_ms:.4f}, bytes {bytes_ms:.4f}); "
+        f"library_ms null: no single PyTorch call computes a closest hit")
+    if t_bad or prim_bad or duv > 1e-6:
+        raise SystemExit(f"fan_stream {mode} disagrees with its plain version")
+    return dict(
+        name=f"fan_stream[{mode}]", route="cuda", source=FAN_SOURCE,
+        replaces=FAN_REPLACES, max_abs_err=duv, ms=kernel_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        library_ms=None,
+    ), hk
+
+
+def phase_fan_kernels(torch, dev, syn, clusters):
+    """Kernels B2 and B3 against fan_stream_plain at the apartment's path
+    shapes: the FanScene-only bake's rows (1024 texels x 2048 spp, one
+    shared origin each, emit_uv), one bench view's G-buffer (98,304 pixel
+    rays, t_min 1e-6) and that view's specular rays (1,572,864, per-ray
+    origins, emit_uv and prim); then B2 against B1 on the bake rows
+    (occluders off): t bit-equal, prim equal but on exact-t ties."""
+    from texir_code_tpu_torch.ops.gbuffer import DeviceMesh, ray_dirs_from_mvp
+    from texir_code_tpu_torch.ops.pallas_culled import culled_walk_cuda, walk_args
+    from texir_code_tpu_torch.ops.raycast import RayHit
+    from texir_code_tpu_torch.ops.sampling import generate_dir_soa
+
+    fan = fan_scene(syn.mesh)
+    rows = fan.device_rows(dev)
+    out = {}
+    pts, nrm, ids = bake_texels(syn, 1024)
+    p = torch.from_numpy(pts).to(dev)
+    n = torch.from_numpy(nrm).to(dev)
+    d = tuple(a.contiguous() for a in generate_dir_soa(
+        tuple(n[:, k] for k in range(3)), SPP, mode="uniform",
+        row_ids=torch.from_numpy(ids).to(dev), seed=777))
+    o = torch.stack([p[:, k] + 1e-2 * n[:, k] for k in range(3)], -1)
+    out["shared_uv"], h2 = check_fan(torch, "FanScene-only bake rows", rows,
+                                     o.contiguous(), d, 0.0, True, False)
+    # B2 against B1 on the same rows: the same plane-dual test, the culled
+    # walk without occluders visits every cluster that can hold the hit
+    h1 = culled_walk_cuda(**walk_args(
+        clusters, tuple(o[:, k] for k in range(3)), d, fan_block=FAN_BLOCK,
+        exit_rows=EXIT_ROWS, emit_uv=True, emit_prim=True))
+    torch.cuda.synchronize()
+    t_bad = int((h1[0] != h2[0]).sum())
+    ties = int(((h1[1] != h2[1]) & (h1[0] == h2[0])).sum())
+    log(f"[fan-kernels] B2 vs B1 on the bake rows (occluders off): t not "
+        f"bit-equal on {t_bad} of {h2[0].numel()} rays; prim ties {ties}")
+    if t_bad or ties > 1e-4 * h2[0].numel():
+        raise SystemExit("fan_stream and culled_walk disagree on the bake rows")
+
+    pos, mvp = bench_camera(syn)
+    cam = torch.as_tensor(pos, device=dev)
+    flat = ray_dirs_from_mvp(mvp.to(dev), PANO[1] // 4).reshape(-1, 3)
+    width = min(2048, flat.shape[0])  # rows as render_gbuffer cuts them
+    while flat.shape[0] % width:
+        width -= 128
+    g_rows = flat.shape[0] // width
+    gd = tuple(flat[:, k].reshape(g_rows, width).contiguous()
+               for k in range(3))
+    go = cam[None].expand(g_rows, 3).contiguous()
+    out["shared_prim"], hg = check_fan(torch, "G-buffer of one view", rows,
+                                       go, gd, 1e-6, False, False)
+    dm = DeviceMesh.from_mesh(syn.mesh, dev)
+    hit = RayHit(*(a.reshape(-1) for a in hg))
+    so, sd = specular_rows(torch, dm, hit, cam, dev)
+    so = torch.stack(so, 0).contiguous()
+    sd = tuple(a.contiguous() for a in sd)
+    for emit_uv in (True, False):
+        row, _ = check_fan(torch, "specular rays of one view", rows, so, sd,
+                           0.0, emit_uv, True)
+        out["per_ray_uv" if emit_uv else "per_ray_prim"] = row
+    return out
+
+
+def phase_visits(torch, dev, clusters, occ, syn):
+    """B1's debug_emit_visits telemetry on the apartment's bake rows,
+    through cast_fans_culled (the telemetry scripts' entry point), against
+    the plain walk: u (clusters each exit group visited) and v (its
+    candidate count) equal exactly, t and prim too."""
+    from texir_code_tpu_torch.ops.pallas_culled import (
+        cast_fans_culled,
+        culled_walk_cuda,
+        culled_walk_plain,
+        walk_args,
+        walk_mode,
+    )
+
+    pts, nrm, ids = bake_texels(syn, 1024)
+    rows_o, rows_d = bake_rows(torch, pts, nrm, ids, 777, dev)
+    kw = dict(fan_block=FAN_BLOCK, exit_rows=EXIT_ROWS, emit_uv=True,
+              occluders=occ)
+    culled_walk_cuda.launches.clear()
+    hk = cast_fans_culled(clusters, rows_o, rows_d, debug_emit_visits=True,
+                          **kw)
+    torch.cuda.synchronize()
+    launches = dict(culled_walk_cuda.launches)
+    mode = walk_mode(False, True, False, visits=True)
+    if launches.get(mode, 0) <= 0:
+        raise SystemExit(f"[visits] culled_walk {mode} never launched")
+    inp = walk_args(clusters, rows_o, rows_d, **kw)
+    hp, plain_ms = timed_once(
+        torch, lambda: culled_walk_plain(**inp, visits=True))
+    bad = [name for name, a, b in zip("t prim u v".split(),
+                                      (hk.t, hk.prim, hk.u, hk.v), hp)
+           if not torch.equal(a, b[:a.shape[0]])]
+    kernel_ms = cuda_ms(
+        torch, lambda: culled_walk_cuda(**inp, visits=True), 20)
+    g = inp["count"].numel()
+    visits = hk.u.reshape(g, -1)[:, 0]
+    count = hk.v.reshape(g, -1)[:, 0]
+    # the telemetry walk's work is the walk's (the counts are a by-product)
+    bound_ms, ops_ms, bytes_ms, _, _ = walk_bound(torch, inp, hp[0])
+    log(f"[visits] culled_walk {mode} via cast_fans_culled: {g} exit groups, "
+        f"visits {float(visits.mean()):.2f} of {float(count.mean()):.2f} "
+        f"candidates a group (max {int(visits.max())}); launches {launches}")
+    log(f"[visits]   differs from the plain walk in: {bad or 'nothing'}; "
+        f"kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.2f}  bound_ms "
+        f"{bound_ms:.4f} (ops {ops_ms:.4f}, bytes {bytes_ms:.4f}: the "
+        f"walk's); library_ms null: no single PyTorch call computes it")
+    if bad:
+        raise SystemExit(f"[visits] the telemetry disagrees in {bad}")
+    return dict(
+        name=f"culled_walk[{mode}]", route="cuda", source=KERNEL_SOURCE,
+        replaces=VISITS_REPLACES, max_abs_err=0.0, ms=kernel_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        library_ms=None, launches=launches[mode])
+
+
+def _raw_quantized(tex):
+    """A bake as the runner's 0_irr_texture.hdr stores it (RGBE)."""
+    from texir_code_tpu_torch.data import hdrio
+
+    return hdrio.rgbe_to_float(hdrio.float_to_rgbe(tex))
+
+
+def bake_rule(label, a, b, valid):
+    """PERF.md section 2's bake-correctness rule on valid texels: within
+    rtol 1e-4 on at least 98%, none beyond 0.05."""
+    rel = (np.abs(a - b) / np.maximum(np.abs(b), 1e-3))[valid]
+    log(f"{label}: max rel {rel.max():.3g}, texels above 1e-4: "
+        f"{int((rel > 1e-4).any(-1).sum())} of {int(valid.sum())}")
+    if (rel > 1e-4).any(-1).mean() > 0.02 or rel.max() > 0.05:
+        raise SystemExit(f"{label}: the bakes disagree")
+
+
+def phase_fan_slice(torch, path_mesh, tmp):
+    """The apartment's FanScene-only bake at 1024^2 x 2048 spp, texel batch
+    4096, through IrradianceTextureBaker(tbl, fan_scene=fan,
+    max_leaves=fan.num_leaves) with the IrrT runner's other settings and
+    seed; held against the [slice] phase's culled raw bake."""
+    from texir_code_tpu_torch.data import hdrio
+    from texir_code_tpu_torch.geometry import load_obj
+    from texir_code_tpu_torch.models.tbl import build_tbl
+    from texir_code_tpu_torch.models.tracer_irt import (
+        IrradianceTextureBaker,
+        bake_geometry_textures,
+    )
+    from texir_code_tpu_torch.ops.pallas_culled import culled_walk_cuda
+    from texir_code_tpu_torch.ops.pallas_fan import fan_stream_cuda
+    from texir_code_tpu_torch.train.exp import seed_everything
+
+    t0 = time.time()
+    mesh = load_obj(path_mesh)
+    tex = hdrio.read_hdr(path_mesh.replace("out1.obj", "hdr_texture.hdr"),
+                         flip=True)
+    tbl = build_tbl(mesh, tex, 0.0, device="cuda")
+    fan = fan_scene(mesh)
+    geom = bake_geometry_textures(mesh, IRT_RES)
+    baker = IrradianceTextureBaker(tbl, spp=SPP, texel_batch=4096,
+                                   fan_scene=fan, max_leaves=fan.num_leaves)
+    gen = seed_everything(666)  # the IrrT runner's generator
+    setup_s = time.time() - t0
+    fan_stream_cuda.launches.clear()
+    culled_walk_cuda.launches.clear()
+    torch.cuda.synchronize()
+    t1 = time.time()
+    raw = baker.bake(geom, gen)
+    torch.cuda.synchronize()
+    dt = time.time() - t1
+    launches = dict(fan_stream_cuda.launches)
+    walked = dict(culled_walk_cuda.launches)
+    texels = int(geom.valid.sum())
+    rays = texels * SPP
+    log(f"[fan-slice] FanScene-only bake: {fan.num_leaves} leaf rows, "
+        f"{texels} texels x {SPP} spp = {rays} rays in {dt:.2f} s = "
+        f"{rays / dt / 1e6:.2f} Mrays/s ({setup_s:.2f} s set-up); "
+        f"fan_stream launches {launches}, culled_walk launches {walked}")
+    if launches.get("shared_uv", 0) <= 0 or walked:
+        raise SystemExit("[fan-slice] the bake did not run the fan stream "
+                         "alone")
+    culled = hdrio.read_hdr(path_mesh.replace("out1.obj", "0_irr_texture.hdr"),
+                            flip=True)
+    if not (np.isfinite(raw).all() and raw[geom.valid].mean() > 0):
+        raise SystemExit("[fan-slice] the bake is black or non-finite")
+    # the same rays (seed, texel ids), summed in another order, and the
+    # culled bake's occluders: only leaking rays and rounding differ
+    bake_rule("[fan-slice] raw bake vs the [slice] culled bake (both RGBE)",
+              _raw_quantized(raw), culled, geom.valid)
+    dev = baker.device
+    pts, nrm = (torch.from_numpy(geom.position[geom.valid][:4096]).to(dev),
+                torch.from_numpy(geom.normal[geom.valid][:4096]).to(dev))
+    ids = torch.arange(pts.shape[0], device=dev)
+    profile_once(torch, "fan-slice", "one bake batch (4096 texels x 2048 "
+                 "spp)", lambda: baker.bake_batch(pts, nrm, ids, 99))
+    return launches
+
+
+def mat_runner(torch, path_mesh, tmp, name):
+    """The Mat runner on the apartment's export at the bench settings, with
+    its masks built and the view of camera 0 prepared (as [mat-profile])."""
+    from texir_code_tpu_torch.config import _parse_value, parse_file
+    from texir_code_tpu_torch.train.material import MatTrainRunner
+
+    conf_path, sets = _mat_conf(path_mesh, PANO)
+    conf = parse_file(conf_path)
+    for kv in sets[1::2]:  # the values of the "--set KEY=VAL" pairs
+        k, _, v = kv.partition("=")
+        conf.put(k.strip(), _parse_value(v.strip()))
+    return MatTrainRunner(conf, exps_root=os.path.join(tmp, name),
+                          max_epochs=1)
+
+
+def step_loss_grads(torch, model, params, mvp, pos, shift, gt, seg, room,
+                    view, seg_weight_scale=1.0):
+    """One stage-2 forward on a cached view + render_loss + backward:
+    (loss, albedo grad, roughness grad, rgb)."""
+    from texir_code_tpu_torch.models.losses import render_loss
+    from texir_code_tpu_torch.models.material import MaterialParams
+
+    d = model.device
+    p = MaterialParams(params.albedo.detach().clone().requires_grad_(True),
+                       params.roughness.detach().clone().requires_grad_(True))
+    o = model._forward(p, mvp, pos, 2, view=view, spec_shift=shift)
+    ones = torch.ones_like(o["rgb"][..., :1])
+    loss, _ = render_loss(gt.to(d), o, ones, seg.to(d), 9, 2,
+                          seg_region=ones, room_id=room.to(d), num_rooms=3,
+                          seg_weight_scale=seg_weight_scale)
+    loss.backward()
+    return loss.item(), p.albedo.grad, p.roughness.grad, o["rgb"].detach()
+
+
+def phase_fan_mat(torch, dev, path_mesh, tmp, syn):
+    """Stage-2 steps of the apartment's Mat model with model.cluster_scene
+    = None (the G-buffer on B2, the specular trace on B3) at the bench
+    atlases, through the runner's step; then its G-buffer against the
+    culled model's (equal but on exact-t ties, where the two traces pick
+    either triangle of a shared edge and the uv rounds apart), and one
+    step on the same cached view (as the runner caches it) against the
+    culled model's with the same injected shifts: loss rel <= 1e-4,
+    gradient rel L2 <= 1e-3 (the Mat correctness row)."""
+    from texir_code_tpu_torch.ops.pallas_culled import culled_walk_cuda
+    from texir_code_tpu_torch.ops.pallas_fan import fan_stream_cuda
+    from texir_code_tpu_torch.train.material import adam_for_substage
+
+    runner = mat_runner(torch, path_mesh, tmp, "exps_fan_mat")
+    model = runner.model
+    clusters = model.cluster_scene
+    model.cluster_scene = None
+    runner.build_masks()
+    for p in (runner.params.albedo, runner.params.roughness):
+        p.requires_grad_(True)
+    opt, sched = adam_for_substage(runner.params, runner.lr, 20, 0.8, 1)
+    fan_stream_cuda.launches.clear()
+    culled_walk_cuda.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    views, n_rooms = runner._stack_epoch_data(list(range(VIEWS)))
+    runner._step(2, views[0], n_rooms, 0, opt, sched)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    for it in range(1, FAN_MAT_STEPS + 1):
+        runner._step(2, views[it % len(views)], n_rooms, it, opt, sched)
+    torch.cuda.synchronize()
+    dt = time.time() - t1
+    # the exact specular fetch (specular_fetch = "exact"): B3 in prim mode
+    model.specular_fetch = "exact"
+    for it in range(FAN_MAT_STEPS + 1, FAN_MAT_STEPS + 3):
+        runner._step(2, views[it % len(views)], n_rooms, it, opt, sched)
+    model.specular_fetch = "prefiltered"
+    torch.cuda.synchronize()
+    launches = dict(fan_stream_cuda.launches)
+    walked = dict(culled_walk_cuda.launches)
+    it = [FAN_MAT_STEPS + 3]
+
+    def step():
+        it[0] += 1
+        runner._step(2, views[0], n_rooms, it[0], opt, sched)
+
+    profile_once(torch, "fan-mat", "one cached-view stage-2 step", step)
+    log(f"[fan-mat] stage-2 steps without a ClusterScene ({VIEWS} views, "
+        f"albedo {ALBEDO_RES}^2, roughness {ROUGH_RES}^2, sample_light "
+        f"[32, {SPEC_SPP}]): views + first step {t1 - t0:.3f} s, then "
+        f"{FAN_MAT_STEPS} steps in {dt:.3f} s = {FAN_MAT_STEPS / dt:.3f} "
+        f"it/s; fan_stream launches {launches}, culled_walk launches "
+        f"{walked}")
+    for mode in ("shared_prim", "per_ray_uv", "per_ray_prim"):
+        if launches.get(mode, 0) <= 0:
+            raise SystemExit(f"[fan-mat] fan_stream {mode} never launched")
+    if walked:
+        raise SystemExit("[fan-mat] the culled walk ran without a ClusterScene")
+
+    # one step against the culled model's, the same inputs
+    rng = np.random.default_rng(13)
+    pos, mvp = bench_camera(syn)
+    res = PANO[1] // 4
+    b = 6 * res * res
+    shift = torch.from_numpy(rng.uniform(0, 1, (b, 5)).astype(np.float32))
+    gt = torch.from_numpy(rng.uniform(0, 1.5, (6, res, res, 3)).astype(np.float32))
+    seg = torch.from_numpy(rng.integers(0, 8, (6, res, res)))
+    room = torch.from_numpy(rng.integers(0, 3, (6, res, res)))
+    view_f = model.precompute_view(runner.params, mvp, pos)
+    model.cluster_scene = clusters
+    view_c = model.precompute_view(runner.params, mvp, pos)
+    uv_off = (view_f["uv"] != view_c["uv"]).any(-1)
+    dpos = (view_f["position"] - view_c["position"]).abs().amax()
+    log(f"[fan-mat]   G-buffer of view 0 vs the culled model's: uv not "
+        f"bit-equal on {int(uv_off.sum())} of {uv_off.numel()} pixels (max "
+        f"|duv| {float((view_f['uv'] - view_c['uv']).abs().max()):.3g}), "
+        f"max |dposition| {float(dpos):.3g}")
+    if uv_off.float().mean() > 1e-3 or dpos > 1e-4:
+        raise SystemExit("[fan-mat] the FanScene-only G-buffer disagrees")
+
+    def both():
+        """(fan, culled) results of one step on view_c."""
+        out = []
+        for cs in (None, clusters):
+            model.cluster_scene = cs
+            out.append(step_loss_grads(torch, model, runner.params, mvp, pos,
+                                       shift, gt, seg, room, view_c))
+        return out
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm())
+
+    # on the card the default algorithms sum in an order that varies from
+    # run to run (index_add's atomics, as in the seg prior's class means),
+    # and on the runner's near-constant roughness the prior's L1 residuals
+    # sit at their kink, so the roughness gradient follows that rounding:
+    # the step is compared with deterministic algorithms (an op that has
+    # none raises), and the default ones' run-to-run spread is logged
+    # beside it, with and without the prior
+    model.cluster_scene = clusters
+    spread = []
+    for w in (1.0, 0.0):  # with the seg prior, and without it
+        r0, r1 = (step_loss_grads(torch, model, runner.params, mvp, pos,
+                                  shift, gt, seg, room, view_c, w)[2]
+                  for _ in range(2))
+        spread.append(rel_l2(r0, r1))
+    torch.use_deterministic_algorithms(True)
+    try:
+        (lf, af, rf, rgb_f), (lc, ac, rc, rgb_c) = both()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    px_off = int(((rgb_f - rgb_c).abs().amax(-1) > 0).sum())
+    # the culled model's exact specular fetch: B1 in per_ray_prim mode
+    model.specular_fetch = "exact"
+    culled_walk_cuda.launches.clear()
+    for n in range(it[0] + 1, it[0] + 3):
+        runner._step(2, views[n % len(views)], n_rooms, n, opt, sched)
+    torch.cuda.synchronize()
+    model.specular_fetch = "prefiltered"
+    launches["culled:per_ray_prim"] = culled_walk_cuda.launches["per_ray_prim"]
+    log(f"[fan-mat]   2 stage-2 steps of the culled model with the exact "
+        f"fetch: culled_walk launches {dict(culled_walk_cuda.launches)}")
+    if launches["culled:per_ray_prim"] <= 0:
+        raise SystemExit("[fan-mat] culled_walk per_ray_prim never launched")
+    rel = abs(lf - lc) / abs(lc)
+    ga, gr = rel_l2(af, ac), rel_l2(rf, rc)
+    log(f"[fan-mat]   one step on that view vs the culled model's: loss "
+        f"{lf:.7f} vs "
+        f"{lc:.7f} (rel {rel:.3g}); gradient rel L2 albedo {ga:.3g}, "
+        f"roughness {gr:.3g} (deterministic algorithms; with the default "
+        f"ones the roughness gradient of one step against another varies "
+        f"by rel L2 {spread[0]:.3g}, {spread[1]:.3g} without the seg "
+        f"prior); rgb not bit-equal on {px_off} pixels")
+    if not (rel <= 1e-4 and ga <= 1e-3 and gr <= 1e-3):
+        raise SystemExit("[fan-mat] the FanScene-only step disagrees with "
+                         "the culled one")
+    return launches
+
+
+def phase_error(torch, path_mesh, tmp, mat_exps):
+    """`test --teststage Error` through the port's CLI on the apartment's
+    export and the atlases [mat] wrote (configs/test_synthetic.conf:
+    sample_light [1024, 256]; 4 views, pano 256x512, shade_chunk 4096);
+    then one view with the FanScene-only model under the same draw,
+    against the culled model's: rgb within 1e-4 on at least 99.9% of the
+    pixels."""
+    import ast
+    import contextlib
+    import io
+
+    from texir_code_tpu_torch import cli
+    from texir_code_tpu_torch.config import _parse_value, parse_file
+    from texir_code_tpu_torch.eval.runners import MatErrorRunner
+    from texir_code_tpu_torch.ops.pallas_culled import culled_walk_cuda
+    from texir_code_tpu_torch.ops.pallas_fan import fan_stream_cuda
+
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", "test_synthetic.conf")
+    sets = [f"train.path_mesh_open3d={path_mesh}",
+            f"train.pano_img_res=[{PANO[0]}, {PANO[1]}]"]
+    argv = ["test", "--conf", conf, "--teststage", "Error", "--exps_folder",
+            mat_exps]
+    for kv in sets:
+        argv += ["--set", kv]
+    culled_walk_cuda.launches.clear()
+    fan_stream_cuda.launches.clear()
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(culled_walk_cuda.launches)
+    line = [ln for ln in buf.getvalue().splitlines()
+            if ln.startswith("re-rendering error:")]
+    log(f"[error] test --teststage Error via cli: {VIEWS} views at pano "
+        f"{PANO[0]}x{PANO[1]}, sample_light {list(EVAL_SAMPLE_LIGHT)}, "
+        f"shade_chunk {EVAL_CHUNK}: {dt:.2f} s with set-up = "
+        f"{dt / VIEWS:.2f} s a view; {line[-1] if line else 'no metrics'}")
+    log(f"[error]   culled_walk launches {launches}; fan_stream launches "
+        f"{dict(fan_stream_cuda.launches)}")
+    metrics = (ast.literal_eval(line[-1].partition(":")[2].strip())
+               if line else {})
+    vals = [metrics.get(k, float("nan")) for k in ("mse", "psnr", "ssim")]
+    if not np.isfinite(vals).all():
+        raise SystemExit("[error] the tester printed no finite metrics")
+    for mode in ("shared_prim", "per_ray_uv"):
+        if launches.get(mode, 0) <= 0:
+            raise SystemExit(f"[error] culled_walk {mode} never launched")
+
+    c = parse_file(conf)
+    for kv in sets:
+        k, _, v = kv.partition("=")
+        c.put(k, _parse_value(v))
+    runner = MatErrorRunner(c, exps_root=mat_exps)
+    item = runner._default_dataset()[0]
+    torch.cuda.synchronize()
+    t1 = time.time()
+    culled = runner._render(item)["rgb"]
+    torch.cuda.synchronize()
+    t_culled = time.time() - t1
+    clusters = runner.model.cluster_scene
+    runner.model.cluster_scene = None
+    fan_stream_cuda.launches.clear()
+    t2 = time.time()
+    fan = runner._render(item)["rgb"]
+    torch.cuda.synchronize()
+    t_fan = time.time() - t2
+    fan_launches = dict(fan_stream_cuda.launches)
+    diff = (fan - culled).abs().amax(dim=-1)
+    n_off = int((diff > 1e-4).sum())
+    log(f"[error]   view 0 rendered by the FanScene-only model in "
+        f"{t_fan:.2f} s (culled {t_culled:.2f} s; fan_stream launches "
+        f"{fan_launches}): rgb max |diff| {float(diff.max()):.3g}, {n_off} "
+        f"of {diff.numel()} pixels beyond 1e-4")
+    if n_off > 1e-3 * diff.numel():
+        raise SystemExit("[error] the FanScene-only render disagrees")
+    profile_once(torch, "error", "one view's render, FanScene-only",
+                 lambda: runner._render(item))
+    runner.model.cluster_scene = clusters
+    profile_once(torch, "error", "one view's render, culled",
+                 lambda: runner._render(item))
+    return vals
+
+
+def phase_error_reference(torch, dev, syn):
+    """One view's stage-2 eval render (EvalMaterialModel, shade_chunk 4096)
+    on the card against the CPU at pano 64x128 with the full atlases,
+    specular spp 16 and the same injected shifts: rgb rel L2 <= 1e-4."""
+    from texir_code_tpu_torch.eval.renderer import EvalMaterialModel
+    from texir_code_tpu_torch.models.material import MaterialParams
+
+    rng = np.random.default_rng(14)
+    irt = rng.uniform(0.5, 2.0, (1024, 1024, 3)).astype(np.float32)
+    albedo = rng.uniform(0.2, 0.8, (ALBEDO_RES, ALBEDO_RES, 3)).astype(np.float32)
+    rough = rng.uniform(0.05, 0.7, (ROUGH_RES, ROUGH_RES, 1)).astype(np.float32)
+    pos, mvp = bench_camera(syn)
+    b = 6 * 32 * 32
+    shift = torch.from_numpy(rng.uniform(0, 1, (b, 2)).astype(np.float32))
+    rgb = {}
+    for d in (dev, torch.device("cpu")):
+        m = EvalMaterialModel(syn.mesh, syn.hdr_texture, irt,
+                              pano_res=(64, 128), sample_light=(1024, 16),
+                              render_knobs=dict(use_occluders=True), device=d)
+        p = MaterialParams(torch.tensor(albedo, device=d),
+                           torch.tensor(rough, device=d))
+        with torch.no_grad():
+            rgb[d.type] = m._forward(p, mvp, pos, 2,
+                                     spec_shift=shift)["rgb"].cpu()
+    rel = float((rgb["cuda"] - rgb["cpu"]).norm() / rgb["cpu"].norm())
+    log(f"[error-reference] stage-2 eval render card vs cpu, pano 64x128, "
+        f"atlases {ALBEDO_RES}^2/{ROUGH_RES}^2, shade_chunk {EVAL_CHUNK}: "
+        f"rgb rel L2 {rel:.3g}")
+    if not rel <= 1e-4:
+        raise SystemExit("the eval render on the card disagrees with the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -1223,6 +1847,8 @@ def main():
     syn, clusters, occ = bench_scene(dev)
     rows = phase_kernels(torch, dev, clusters, occ, syn)
     rows.update(phase_mat_kernels(torch, dev, syn))
+    fan_rows = phase_fan_kernels(torch, dev, syn, clusters)
+    rows["shared_uv_visits"] = phase_visits(torch, dev, clusters, occ, syn)
     b = building_scene(torch, dev)
     rows.update(phase_building_kernels(torch, dev, b))
     log(f"[time] kernels checked at {time.time() - t_start:.1f} s")
@@ -1233,6 +1859,14 @@ def main():
         launches, _ = phase_mat(torch, path_mesh, tmp)
         for mode in ("shared_prim", "per_ray_uv"):
             rows[mode]["launches"] = launches[mode]
+        fan_launches = phase_fan_slice(torch, path_mesh, tmp)
+        fan_launches.update({
+            k: v for k, v in phase_fan_mat(torch, dev, path_mesh, tmp,
+                                           syn).items() if k != "shared_uv"})
+        for mode in FAN_MODES:
+            fan_rows[mode]["launches"] = fan_launches[mode]
+        rows["per_ray_prim"]["launches"] = fan_launches["culled:per_ray_prim"]
+        phase_error(torch, path_mesh, tmp, os.path.join(tmp, "exps"))
         phase_profile(torch, dev, clusters, occ, syn)
         phase_mat_profile(torch, path_mesh, tmp)
         log(f"[time] apartment path done at {time.time() - t_start:.1f} s")
@@ -1249,12 +1883,14 @@ def main():
         log(f"[time] building path done at {time.time() - t_start:.1f} s")
     phase_reference(torch, dev, clusters, occ, syn)
     phase_mat_reference(torch, dev, syn)
+    phase_error_reference(torch, dev, syn)
     phase_building_reference(torch, dev, b)
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [rows[k] for k in (
         "shared_uv", "shared_prim", "per_ray_uv", "shared_uv@building",
         "shared_uv_seeded", "per_ray_uv@building", "shared_prim_seeded",
-        "per_ray_uv_seeded")]}))
+        "per_ray_uv_seeded", "per_ray_prim", "shared_uv_visits")]
+        + [fan_rows[m] for m in FAN_MODES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -135,7 +135,10 @@ def test_proxy_from_fan_matches_jax(setup):
 
 # the three shapes of the main path: (walk kwargs, cluster size, JAX kwargs)
 MODES = {
-    "shared_uv": (dict(fan_block=8, exit_rows=4, emit_uv=True), 4, {}),
+    # JAX runs blocks of one exit group (fan_block 4): the same groups and
+    # hits, and half the interpret-mode program of a block of two
+    "shared_uv": (dict(fan_block=8, exit_rows=4, emit_uv=True), 4,
+                  dict(fan_block=4)),
     "shared_prim": (dict(fan_block=8, exit_rows=0, emit_prim=True,
                          t_min=1e-6), 8, {}),
     # one exit group per row: JAX runs blocks of one row, whose
@@ -191,7 +194,9 @@ def test_seeded_walk_matches_jax(setup, mode):
 def test_seed_counts_match_jax(setup):
     """The candidate lists cut at each group's worst seed t: the port's
     seed_counts against the counts the JAX kernel walks with (its
-    debug_emit_visits telemetry writes them into v)."""
+    debug_emit_visits telemetry writes them into v), and the port's own
+    telemetry (B1 (e), the plain walk: u = clusters each exit group
+    visited, v = its count) equal to JAX's, with the same hits."""
     s = setup
     # the G-buffer's narrow cones, in exit groups of four rows at lb 4:
     # a group's worst ray ends at a near wall, short of the far clusters
@@ -210,9 +215,19 @@ def test_seed_counts_match_jax(setup):
     got = T.seed_counts(dist.reshape(g, -1), seed.t, t_cap).numpy()
     full = count.reshape(g).numpy()
     assert (got <= full).all() and got.sum() < full.sum()
+    # JAX in blocks of one exit group (the same groups, counts and hits)
     ref = J.cast_fans_culled(
         s["js"][4], tuple(map(jnp.asarray, o)), tuple(map(jnp.asarray, d)),
         seed=JHit(*(jnp.asarray(a.numpy()) for a in
                     (seed.t, seed.prim, seed.u, seed.v))),
-        occluders=s["jo"], interpret=True, debug_emit_visits=True, **kw)
+        occluders=s["jo"], interpret=True, debug_emit_visits=True,
+        **dict(kw, fan_block=er))
     assert np.array_equal(np.asarray(ref.v)[::er, 0].astype(np.int32), got)
+    tel = T.cast_fans_culled(scene, _t(o), _t(d), seed=seed,
+                             occluders=s["to"], debug_emit_visits=True, **kw)
+    for a, b in ((tel.t, ref.t), (tel.prim, ref.prim), (tel.u, ref.u),
+                 (tel.v, ref.v)):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    visits = tel.u.numpy()[::er, 0]
+    # a seeded group walks at least one cluster when it has candidates
+    assert ((visits >= 1) == (got >= 1)).all() and (visits <= got).all()

@@ -455,3 +455,134 @@ def test_twopass_batch_matches_plain(proxy):
                                     proxy=px if proxy else None, **tp)
     _assert_hits_match(hc, hd)
     _assert_hits_match(hc, T.cast_fans_culled(cs, od, dd, occluders=oc, **kw))
+
+
+# ---------------------------------------------------------------------------
+# B1 (e): the visit telemetry; B2/B3: the exhaustive leaf stream
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seeded", [False, True])
+def test_visit_telemetry_matches_plain(walk, seeded):
+    """The kernel's visits (the maximum of its rays' stop indices) equal
+    the plain walk's group-wide count, and the counts equal; t and prim
+    are the hits."""
+    args = dict(walk["args"], emit_uv=True, emit_prim=False)
+    if seeded:
+        # the walk's own hits, coarsened: valid upper bounds on t
+        t, prim, u, v = T.culled_walk_plain(**args)
+        seed = (torch.where(torch.isfinite(t), t * 1.5, t), prim, u, v)
+        g = args["count"].numel()
+        args["seed"] = seed
+        args["count"] = T.seed_counts(args["dist"], seed[0], args["t_cap"])
+        assert args["count"].shape == (g,)
+    ref = T.culled_walk_plain(**args, visits=True)
+    cargs = _cuda(args)
+    if seeded:
+        cargs["seed"] = tuple(a.cuda() for a in args["seed"])
+    before = T.culled_walk_cuda.launches.copy()
+    got = T.culled_walk_cuda(**cargs, visits=True)
+    torch.cuda.synchronize()
+    mode = "shared_uv_seeded_visits" if seeded else "shared_uv_visits"
+    assert T.culled_walk_cuda.launches[mode] == before[mode] + 1
+    for a, b in zip(ref, got):
+        assert torch.equal(a, b.cpu())
+    assert (ref[2] >= 1).any()
+
+
+def _fan_setup():
+    from texir_code_tpu_torch.ops.fan_raycast import FanScene
+
+    syn = make_apartment_scene(atlas_res=64, subdiv=6)
+    fan = FanScene.from_flat(build_bvh(syn.mesh.vertices, syn.mesh.faces),
+                             triangle_uvs=syn.mesh.triangle_uvs())
+    rng = np.random.default_rng(4)
+    o = rng.uniform(0.5, 2.5, (12, 256, 3)).astype(np.float32)
+    d = rng.standard_normal((12, 256, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return syn, fan, o, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_ray", [False, True])
+@pytest.mark.parametrize("emit_uv", [True, False])
+@pytest.mark.parametrize("t_min", [0.0, 1e-6])
+def test_fan_stream_matches_plain(per_ray, emit_uv, t_min):
+    """B2 (shared origins) and B3 (per-ray origins) against the plain
+    stream: every output bit-equal (the same operations in the same order,
+    no multiply-add contraction, IEEE division)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the stream kernel has no CPU mode)")
+    from texir_code_tpu_torch.ops import pallas_fan as F
+
+    _, fan, o, d = _fan_setup()
+    rows = torch.from_numpy(fan.rows)
+    if per_ray:
+        origins = torch.from_numpy(np.ascontiguousarray(o.transpose(2, 0, 1)))
+    else:
+        origins = torch.from_numpy(np.ascontiguousarray(o[:, 0]))
+    dirs = [torch.from_numpy(np.ascontiguousarray(d[..., k]))
+            for k in range(3)]
+    ref = F.fan_stream_plain(rows, origins, *dirs, t_min=t_min,
+                             emit_uv=emit_uv, per_ray=per_ray)
+    mode = F.stream_mode(per_ray, emit_uv)
+    before = F.fan_stream_cuda.launches[mode]
+    got = F.fan_stream_cuda(rows.cuda(), origins.cuda(),
+                            *(a.cuda() for a in dirs), t_min=t_min,
+                            emit_uv=emit_uv, per_ray=per_ray)
+    torch.cuda.synchronize()
+    assert F.fan_stream_cuda.launches[mode] == before + 1
+    for a, b in zip(ref, got):
+        assert torch.equal(a, b.cpu())
+    assert torch.isfinite(ref[0]).float().mean() > 0.99
+
+
+@pytest.mark.cuda
+def test_fan_scene_only_paths_on_card():
+    """The FanScene-only bake batch and Mat forward on the card against
+    the CPU: the same rays, the same hits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the stream kernel has no CPU mode)")
+    from texir_code_tpu_torch.models.material import (
+        MaterialModel,
+        MaterialParams,
+    )
+    from texir_code_tpu_torch.models.tbl import build_tbl
+    from texir_code_tpu_torch.models.tracer_irt import IrradianceTextureBaker
+    from texir_code_tpu_torch.ops import pallas_fan as F
+    from texir_code_tpu_torch.ops.gbuffer import cube_mvp
+
+    syn, fan, o, _ = _fan_setup()
+    pts = torch.from_numpy(o[:, 0])
+    rng = np.random.default_rng(5)
+    nrm = rng.standard_normal((12, 3)).astype(np.float32)
+    nrm = torch.from_numpy(nrm / np.linalg.norm(nrm, axis=-1, keepdims=True))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        baker = IrradianceTextureBaker(
+            build_tbl(syn.mesh, syn.hdr_texture, device=dev), spp=256,
+            fan_scene=fan, max_leaves=fan.num_leaves)
+        out[dev] = baker.bake_batch(pts.to(dev), nrm.to(dev),
+                                    torch.arange(12, device=dev), 3).cpu()
+    np.testing.assert_allclose(out["cuda"].numpy(), out["cpu"].numpy(),
+                               rtol=1e-4, atol=1e-6)
+    pos = syn.camera_positions(1)[0]
+    ext = np.eye(4, dtype=np.float32)
+    ext[0:3, 3] = pos
+    shift = torch.from_numpy(rng.uniform(0, 1, (6 * 64, 2)).astype(np.float32))
+    rgb = {}
+    F.fan_stream_cuda.launches.clear()
+    for dev in ("cuda", "cpu"):
+        m = MaterialModel(syn.mesh, syn.hdr_texture,
+                          np.ones((32, 32, 3), np.float32), pano_res=(16, 32),
+                          sample_light=(8, 4), device=dev)
+        m.cluster_scene = None
+        p = MaterialParams(torch.full((32, 32, 3), 0.5, device=dev),
+                           torch.full((32, 32, 1), 0.3, device=dev))
+        rgb[dev] = m._forward(p, cube_mvp(ext), pos, 2,
+                              spec_shift=shift)["rgb"].cpu()
+    assert F.fan_stream_cuda.launches["shared_prim"] == 1
+    assert F.fan_stream_cuda.launches["per_ray_uv"] == 1
+    np.testing.assert_allclose(rgb["cuda"].numpy(), rgb["cpu"].numpy(),
+                               rtol=1e-4, atol=1e-5)

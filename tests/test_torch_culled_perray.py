@@ -7,7 +7,9 @@ both at cluster size lb 8.
 
 The JAX side runs `cast_fans_culled(..., interpret=True)` (IEEE `1/nd`).
 Both trace the same packed scene and rays (numpy from a seed), with
-proven occluders on and off.  Tolerances: t/u/v within 1e-6 absolute (the
+proven occluders on and off; JAX's candidate lists come from its
+`cull_blocks`, computed apart on its padded rows and handed over as
+`cull=`, so the two occluder settings run one compiled JAX kernel.  Tolerances: t/u/v within 1e-6 absolute (the
 port rounds each product in the reference's order; XLA may contract one,
 measured below 1e-6), prim exact except where two triangles tie in t.
 """
@@ -82,6 +84,29 @@ SHAPES = {
 }
 
 
+def _jax_cull(s, o, d, jkw, occluders):
+    """The candidate lists JAX's cast_fans_culled makes for these rows:
+    cull_blocks on the rows zero-padded to whole fan blocks, per-row
+    origin boxes with per-ray origins, groups of exit_rows (or the
+    block)."""
+    tf, er = jkw["fan_block"], jkw.get("exit_rows", 0)
+    er = er if (er and tf % er == 0) else tf
+    tp, r = d[0].shape
+    pad = (-tp) % tf
+    d = tuple(np.concatenate([a, np.zeros((pad, r), np.float32)]) for a in d)
+    if jkw.get("per_ray"):
+        o = tuple(np.concatenate([a, np.zeros((pad, r), np.float32)])
+                  for a in o)
+        lo, hi = tuple(a.min(1) for a in o), tuple(a.max(1) for a in o)
+    else:
+        lo = hi = tuple(np.concatenate([a, np.zeros(pad, np.float32)])
+                        for a in o)
+    return J.cull_blocks(
+        s["jc"], tuple(map(jnp.asarray, lo)), tuple(map(jnp.asarray, hi)),
+        tuple(map(jnp.asarray, d)), er,
+        occluders=s["jo"] if occluders else None)
+
+
 def _hits(s, shape, occluders):
     kw = SHAPES[shape]
     key = "spec" if shape == "specular" else "gbuf"
@@ -90,16 +115,22 @@ def _hits(s, shape, occluders):
     # whatever the block: JAX runs blocks of one row, whose interpret-mode
     # program (one group) compiles ~8x faster than a block of eight
     jkw = dict(kw, fan_block=1) if kw.get("exit_rows") == 1 else kw
+    cull = _jax_cull(s, o, d, jkw, occluders)
     hj = J.cast_fans_culled(
         s["jc"], tuple(jnp.asarray(a) for a in o),
-        tuple(jnp.asarray(a) for a in d), interpret=True,
-        occluders=s["jo"] if occluders else None, **jkw,
+        tuple(jnp.asarray(a) for a in d), interpret=True, cull=cull, **jkw,
     )
-    ht = T.cast_fans_culled(
-        s["tc"], tuple(torch.from_numpy(a) for a in o),
-        tuple(torch.from_numpy(a) for a in d),
-        occluders=s["to"] if occluders else None, **kw,
-    )
+    ot, dt = tuple(map(torch.from_numpy, o)), tuple(map(torch.from_numpy, d))
+    to = s["to"] if occluders else None
+    ht = T.cast_fans_culled(s["tc"], ot, dt, occluders=to, **kw)
+    # the lists handed to JAX are the port's own: the groups walk_args
+    # makes from the same rows (with exit_rows 1 a group is one row, so
+    # the port's last group, all padding, is the only one JAX lacks)
+    wa = T.walk_args(s["tc"], ot, dt, occluders=to, **kw)
+    for name, a in zip(("cand", "count", "dist"), cull):
+        a = np.asarray(a)
+        b = wa[name].numpy()[:a.shape[0]]
+        assert np.array_equal(a.reshape(b.shape), b), name
     ref = [np.asarray(a) for a in (hj.t, hj.prim, hj.u, hj.v)]
     got = [a.numpy() for a in (ht.t, ht.prim, ht.u, ht.v)]
     return ref, got

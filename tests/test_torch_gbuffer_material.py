@@ -295,7 +295,7 @@ def test_adam_and_clamp_match_optax(setup):
 
 
 # ---------------------------------------------------------------------------
-# the TBL pieces the forward pass reads, and the knobs that are not ported
+# the TBL pieces the forward pass reads, and the conf knobs
 # ---------------------------------------------------------------------------
 
 
@@ -336,14 +336,6 @@ def test_tbl_radiance_vhl_and_auto_query(setup):
         assert x.shape == (3, 50)
         np.testing.assert_array_equal(x.reshape(-1).numpy(), y[:150].numpy())
     assert float(sum(x.sum() for x in got)) > 0
-
-
-@pytest.mark.parametrize("knob", ["shade_chunk"])
-def test_unported_knobs_raise(setup, knob):
-    s = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TMat(s["tmesh"], s["scene"].hdr_texture, np.ones((8, 8, 3), np.float32),
-             pano_res=PANO, device="cpu", render_knobs={knob: 1})
 
 
 def test_render_knobs_from_conf():

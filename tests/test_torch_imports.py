@@ -45,7 +45,10 @@ def _imports(path):
 def test_scan_covers_the_port():
     names = {os.path.relpath(p, ROOT) for p in _sources()}
     assert "chip_smoke.py" in names
-    assert os.path.join("texir_code_tpu_torch", "ops", "pallas_culled.py") in names
+    for mod in (("ops", "pallas_culled.py"), ("ops", "pallas_fan.py"),
+                ("ops", "chunking.py"), ("eval", "renderer.py"),
+                ("eval", "runners.py")):
+        assert os.path.join("texir_code_tpu_torch", *mod) in names
     assert len(names) > 20
 
 

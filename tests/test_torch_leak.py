@@ -99,11 +99,23 @@ def _brute(s, i):
 @pytest.mark.parametrize("occluders", [True, False])
 def test_jax_single_pass_leaks_as_the_port_does(setup, occluders):
     o, d = _row(0)
-    h = J.cast_fans_culled(
-        setup["jc"], tuple(map(jnp.asarray, o)), tuple(map(jnp.asarray, d)),
-        fan_block=1, emit_uv=True, interpret=True,
-        occluders=setup["jo"] if occluders else None)
+    oj, dj = tuple(map(jnp.asarray, o)), tuple(map(jnp.asarray, d))
+    # the lists JAX's cast_fans_culled makes for this row (one row, one
+    # group), computed apart: both occluder settings run one compiled
+    # JAX kernel
+    cull = J.cull_blocks(setup["jc"], oj, oj, dj, 1,
+                         occluders=setup["jo"] if occluders else None)
+    h = J.cast_fans_culled(setup["jc"], oj, dj, fan_block=1, emit_uv=True,
+                           interpret=True, cull=cull)
     ref = [np.asarray(a) for a in (h.t, h.prim, h.u, h.v)]
+    # the lists handed to JAX are the ones the port's walk makes
+    wa = T.walk_args(setup["tc"], tuple(map(torch.from_numpy, o)),
+                     tuple(map(torch.from_numpy, d)), fan_block=1,
+                     emit_uv=True,
+                     occluders=setup["to"] if occluders else None)
+    for name, a in zip(("cand", "count", "dist"), cull):
+        b = wa[name].numpy()
+        assert np.array_equal(np.asarray(a).reshape(b.shape), b), name
     got = _port(setup, 0, occluders)
     # t and prim bit-equal; u and v within UV_TOL (XLA contracts a
     # multiply-add in the barycentric terms, the port rounds each product)

@@ -6,6 +6,12 @@ Train (reference trainer/exp_runner.py):
         [--is_continue [--timestamp T]] [--set KEY=VAL ...] \
         [--device cuda|cpu]
 
+Test (reference tester/exp_runner.py):
+    python -m texir_code_tpu_torch.cli test --conf configs/x.conf \
+        --teststage {Editing,View,Relighting,Error} [--expname N] \
+        [--timestamp T] [--exps_folder D] [--set KEY=VAL ...] \
+        [--device cuda|cpu]
+
 Demo (no dataset needed — exports a synthetic scan):
     python -m texir_code_tpu_torch.cli demo --out /tmp/demo [--device cpu]
 
@@ -38,6 +44,11 @@ _HEADS = (
     "RecMLPSyn",
 )
 _NOT_PORTED.update({h: "queue A item 14 (baseline heads)" for h in _HEADS})
+# testers of the JAX CLI that are not ported yet → their ROADMAP.md item
+_TESTS_NOT_PORTED = {
+    name: "queue A item 10 (eval: the Editing, View and Relighting testers)"
+    for name in ("Editing", "View", "Relighting")
+}
 
 
 def _irrt(conf, args):
@@ -63,6 +74,18 @@ def _mat(conf, args):
 TRAIN_STAGES = {"IrrT": _irrt, "Mat": _mat}
 
 
+def _error(conf, args):
+    from texir_code_tpu_torch.eval.runners import MatErrorRunner
+
+    return MatErrorRunner(
+        conf, expname=args.expname, exps_root=args.exps_folder,
+        timestamp=args.timestamp, device=args.device,
+    ).run()
+
+
+TEST_STAGES = {"Error": _error}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="texir_code_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -81,6 +104,18 @@ def main(argv=None):
                     help="conf override (repeatable), e.g. "
                          "--set train.path_mesh_open3d=./data/mesh/out1.obj")
     pt.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the plain PyTorch path")
+
+    pe = sub.add_parser("test")
+    pe.add_argument("--conf", required=True)
+    pe.add_argument("--expname", default="default")
+    pe.add_argument("--teststage", required=True,
+                    choices=sorted(set(TEST_STAGES) | set(_TESTS_NOT_PORTED)))
+    pe.add_argument("--exps_folder", default="exps")
+    pe.add_argument("--timestamp", default="latest")
+    pe.add_argument("--set", action="append", default=[], metavar="KEY=VAL",
+                    dest="overrides", help="conf override (repeatable)")
+    pe.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
 
     pd = sub.add_parser("demo")
@@ -106,15 +141,24 @@ def main(argv=None):
         print(f"synthetic dataset exported; path_mesh_open3d = {path_mesh}")
         return 0
 
-    stage = TRAIN_STAGES.get(args.trainstage)
-    if stage is None:
-        item = _NOT_PORTED.get(args.trainstage)
-        if item is None:
-            raise SystemExit(f"unknown train stage {args.trainstage!r}")
-        raise SystemExit(
-            f"train stage {args.trainstage!r} is not ported to "
-            f"texir_code_tpu_torch yet: ROADMAP.md {item}"
-        )
+    if args.command == "test":
+        stage = TEST_STAGES.get(args.teststage)
+        if stage is None:
+            raise SystemExit(
+                f"test stage {args.teststage!r} is not ported to "
+                f"texir_code_tpu_torch yet: ROADMAP.md "
+                f"{_TESTS_NOT_PORTED[args.teststage]}"
+            )
+    else:
+        stage = TRAIN_STAGES.get(args.trainstage)
+        if stage is None:
+            item = _NOT_PORTED.get(args.trainstage)
+            if item is None:
+                raise SystemExit(f"unknown train stage {args.trainstage!r}")
+            raise SystemExit(
+                f"train stage {args.trainstage!r} is not ported to "
+                f"texir_code_tpu_torch yet: ROADMAP.md {item}"
+            )
     conf = parse_file(args.conf)
     for kv in args.overrides:
         key, sep, val = kv.partition("=")

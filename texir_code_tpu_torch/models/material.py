@@ -10,6 +10,10 @@ a camera's six cube faces:
     specular = GGX importance MC against the TBL, its rays traced by the
                culled walk with per-ray origins      [was query_irf]
 
+With `model.cluster_scene = None` (as in the JAX package) both traces run
+the exhaustive leaf stream over the model's FanScene instead
+(ops.pallas_fan; the proxy and the occluders apply only to the walk).
+
 Stage schedule (reference forward, models/mat_nvdiffrast.py:141-190):
     -1: VHL pass — emitter restricted to light-source texels, albedo 0,
         roughness 0.01 → a virtual-highlight image that builds the masks.
@@ -38,6 +42,7 @@ import torch
 
 from texir_code_tpu_torch.device import resolve_device
 from texir_code_tpu_torch.ops import shading
+from texir_code_tpu_torch.ops.chunking import map_chunked
 from texir_code_tpu_torch.ops.gbuffer import DeviceMesh, render_gbuffer
 from texir_code_tpu_torch.ops.sampling import (
     TINY_NUMBER,
@@ -74,12 +79,6 @@ RENDER_KNOBS = (
     "specular_fetch",
     "shade_chunk",
 )
-
-# knobs whose code paths are not ported yet → their ROADMAP.md item
-_NOT_PORTED = {
-    "shade_chunk": "queue A item 10 (pixel-chunked shading for eval)",
-}
-
 
 def render_knobs_from_conf(conf) -> Dict:
     """Collect the models.render.* knobs (and cluster_lb) from a conf."""
@@ -196,16 +195,15 @@ class MaterialModel:
         self.use_occluders = False
         self.mip_stochastic = False
         self.bilinear_stochastic = False
-        self.shade_chunk = None
+        # pixel-chunked shading for high-spp evaluation (the reference's
+        # split_input, utils/general.py:28-58); None = one shot
+        self.shade_chunk: Optional[int] = None
         for k, v in (render_knobs or {}).items():
             if k == "cluster_lb":
                 continue
             if not hasattr(self, k):
                 raise ValueError(f"unknown render knob: {k}")
             setattr(self, k, v)
-        for k, item in _NOT_PORTED.items():
-            if getattr(self, k):
-                raise NotImplementedError(f"{k}: not ported yet (ROADMAP.md {item})")
         if self.bilinear_stochastic and not self.mip_stochastic:
             raise ValueError("bilinear_stochastic requires mip_stochastic=True")
         if self.specular_fetch not in ("prefiltered", "exact"):
@@ -263,7 +261,7 @@ class MaterialModel:
                 self.device_mesh, mvp, cam, self.cube_res, self.cluster_scene,
                 fan_block=self.gbuf_fan_block, exit_rows=self.gbuf_exit_rows,
                 row_width=self.gbuf_row_width, proxy=self.proxy_scene,
-                occluders=self.occluders,
+                occluders=self.occluders, fan_scene=self.fan_scene,
             )
             uv_img = g.uv
             f, h, w, _ = g.normal.shape
@@ -304,11 +302,22 @@ class MaterialModel:
             spec_shift = self.draw_spec_shift(seed, b)
         spec_shift = torch.as_tensor(spec_shift, dtype=torch.float32,
                                      device=self.device)
-        rgb, albedo, roughness, roughness_womip = self._shade_flat(
-            params, view["uv"], view["lod_a"], view["lod_r"], view["lod_i"],
-            normal.reshape(b, 3), position.reshape(b, 3), spec_shift, cam,
-            stage,
-        )
+        args = (view["uv"], view["lod_a"], view["lod_r"], view["lod_i"],
+                normal.reshape(b, 3), position.reshape(b, 3), spec_shift)
+        alb_pyr = build_mip_pyramid(params.albedo, self.max_mip_level)
+        rgh_pyr = build_mip_pyramid(params.roughness, self.max_mip_level)
+
+        def shade(a):
+            return self._shade_flat(alb_pyr, rgh_pyr, params.roughness, *a,
+                                    cam, stage)
+
+        if self.shade_chunk:
+            # pixel chunks, as the reference's split_input; the pyramids
+            # are built once for all of them
+            rgb, albedo, roughness, roughness_womip = map_chunked(
+                shade, args, int(self.shade_chunk))
+        else:
+            rgb, albedo, roughness, roughness_womip = shade(args)
         if stage == 0:
             position_out = position + 1e-1 * normal
         else:
@@ -326,12 +335,12 @@ class MaterialModel:
 
     # -- implementation ----------------------------------------------------
 
-    def _shade_flat(self, params, uv, lod_a, lod_r, lod_i, normal, position,
-                    spec_shift, cam_position, stage: int):
+    def _shade_flat(self, alb_pyr, rgh_pyr, rough_base, uv, lod_a, lod_r,
+                    lod_i, normal, position, spec_shift, cam_position,
+                    stage: int):
         """All differentiable per-pixel work on flat tensors: the four
-        texture fetches (reference :128-139) and the stage's shading."""
-        alb_pyr = build_mip_pyramid(params.albedo, self.max_mip_level)
-        rgh_pyr = build_mip_pyramid(params.roughness, self.max_mip_level)
+        texture fetches (reference :128-139) from the albedo and roughness
+        pyramids and the base roughness atlas, and the stage's shading."""
         # column 2 is the stochastic-LOD uniform, columns 3-4 the
         # bilinear-corner uniforms (present only with their knobs)
         if spec_shift.shape[-1] > 4:
@@ -342,7 +351,7 @@ class MaterialModel:
             rng = None
         albedo = texture_sample(alb_pyr, uv, lod_a, rng=rng)
         roughness = texture_sample(rgh_pyr, uv, lod_r, rng=rng)
-        roughness_womip = bilinear_sample(params.roughness, uv)
+        roughness_womip = bilinear_sample(rough_base, uv)
         irr = texture_sample(self.irt_pyramid, uv, lod_i, rng=rng)
 
         if stage == -1:
@@ -414,7 +423,7 @@ class MaterialModel:
             row_width=self.spec_row_width,
             two_pass_cut=self.spec_two_pass_cut,
             two_pass_cap=self.spec_two_pass_cap, proxy=self.proxy_scene,
-            occluders=self.occluders,
+            occluders=self.occluders, fan_scene=self.fan_scene,
         )
         spec = shading.specular_estimator_soa(
             lighting, half, n, view, light_dirs, rgh

@@ -6,10 +6,9 @@ path: the per-corner uvs, the atlas planes, the RGBE-packed atlas fetches
 (exact bilinear, and the 2×-supersampled prefiltered atlas read with one
 nearest fetch), `radiance_from_hit`, and the bulk ray query
 `query_tbl_stream` / `query_tbl_auto`, whose rays go through the culled
-cluster walk (kernel B1 on the card, its plain version on the CPU).  The
-JAX package's BVH traversal and exhaustive leaf streams (kernels B2/B3)
-serve only scenes without a ClusterScene and are not ported: this TBL
-holds no BVH.
+cluster walk (kernel B1 on the card, its plain version on the CPU) or,
+for a scene with only a FanScene, the exhaustive leaf stream (kernel B3).
+The JAX package's BVH traversal is not ported: this TBL holds no BVH.
 
 Conventions of the reference: hits with t ≤ 1e-4 (or misses) give zero
 radiance; barycentric uv is clipped to [0, 1]; the atlas is fetched with
@@ -243,47 +242,65 @@ def query_tbl_stream(
     two_pass_cut: Optional[float] = None,
     two_pass_cap: float = 0.125,
     proxy=None,
+    fan_scene=None,
 ):
     """Incident radiance along bulk per-ray-origin rays (the fused
-    `query_irf`), traced by the culled walk with per-ray origins.
+    `query_irf`), traced by the culled walk with per-ray origins, or with
+    no cluster scene by the exhaustive leaf stream.
 
     Args:
         origins / dirs: 3-tuples of same-shape tensors whose size is a
             multiple of 128; rows of row_width raster-consecutive rays keep
             the per-row origin boxes (and so the candidate lists) tight.
-        cluster_scene: ops.pallas_culled.ClusterScene of the emitter mesh.
+        cluster_scene: ops.pallas_culled.ClusterScene of the emitter mesh,
+            or None to trace against every row of `fan_scene`
+            (ops.pallas_fan.cast_rays_pallas_stream; the walk's knobs,
+            the two-pass trace, the proxy and the occluders apply only to
+            the culled walk).
         rgbe_pre: optional rgbe_prefilter-ed atlas.  With it (and uv rows
-            in the cluster scene) the walk interpolates the hit's atlas uv
-            and radiance is one nearest RGBE fetch per ray; without it the
-            walk returns prim + barycentrics for radiance_from_hit.
+            in the scene) the trace interpolates the hit's atlas uv and
+            radiance is one nearest RGBE fetch per ray; without it the
+            trace returns prim + barycentrics for radiance_from_hit.
         two_pass_cut / two_pass_cap: trace in two passes
             (ops.pallas_culled.cast_fans_culled_twopass); None = one.
         proxy: optional occlusion-proxy ClusterScene that seeds the walk.
+        fan_scene: ops.fan_raycast.FanScene, used without a cluster scene.
     Returns:
         (r, g, b) shaped like origins[0]; zero for misses.  Not
         differentiable — lighting is detached in the reference too.
     """
+    from texir_code_tpu_torch.ops.fan_raycast import FAN_ROW_WIDTH_UV
     from texir_code_tpu_torch.ops.pallas_culled import (
         cast_fans_culled,
         cast_fans_culled_twopass,
     )
+    from texir_code_tpu_torch.ops.pallas_fan import cast_rays_pallas_stream
 
     shape = origins[0].shape
     total = int(np.prod(shape))
     r = _row_split(total, row_width)
     rows = total // r
-    emit_uv = rgbe_pre is not None and cluster_scene.has_uv
     o_rows = tuple(o.reshape(rows, r) for o in origins)
     d_rows = tuple(d.reshape(rows, r) for d in dirs)
-    kw = dict(per_ray=True, fan_block=fan_block, exit_rows=exit_rows,
-              emit_uv=emit_uv, proxy=proxy, occluders=occluders)
-    if two_pass_cut is not None:
-        hit = cast_fans_culled_twopass(
-            cluster_scene, o_rows, d_rows, cut_frac=two_pass_cut,
-            cap_frac=two_pass_cap, **kw,
-        )
+    if cluster_scene is None:
+        if fan_scene is None:
+            raise ValueError("query_tbl_stream needs a cluster_scene or a "
+                             "fan_scene")
+        emit_uv = (rgbe_pre is not None
+                   and fan_scene.rows.shape[1] >= FAN_ROW_WIDTH_UV)
+        hit = cast_rays_pallas_stream(fan_scene, o_rows, d_rows, t_min=0.0,
+                                      emit_uv=emit_uv)
     else:
-        hit = cast_fans_culled(cluster_scene, o_rows, d_rows, **kw)
+        emit_uv = rgbe_pre is not None and cluster_scene.has_uv
+        kw = dict(per_ray=True, fan_block=fan_block, exit_rows=exit_rows,
+                  emit_uv=emit_uv, proxy=proxy, occluders=occluders)
+        if two_pass_cut is not None:
+            hit = cast_fans_culled_twopass(
+                cluster_scene, o_rows, d_rows, cut_frac=two_pass_cut,
+                cap_frac=two_pass_cap, **kw,
+            )
+        else:
+            hit = cast_fans_culled(cluster_scene, o_rows, d_rows, **kw)
     if emit_uv:
         valid = torch.isfinite(hit.t) & (hit.t > t_valid)
         rgb = nearest_rgbe(rgbe_pre, hit.u.clamp(0.0, 1.0),
@@ -297,8 +314,9 @@ def query_tbl_stream(
 def query_tbl_auto(tbl: TBL, origins, dirs, cluster_scene, **kw):
     """query_tbl_stream for rays of any count: pads them to a multiple of
     128 with zero directions (which hit nothing) and drops the padding.
-    The device of the tensors picks the walk: the CUDA kernel on the
-    card, its plain version on the CPU (ops.pallas_culled.culled_walk)."""
+    The device of the tensors picks the trace: the CUDA kernel on the
+    card, its plain version on the CPU (ops.pallas_culled.culled_walk,
+    ops.pallas_fan.fan_stream)."""
     shape = origins[0].shape
     total = int(np.prod(shape))
     pad = (-total) % 128

@@ -11,7 +11,9 @@ traced by the culled cluster walk (ops.pallas_culled, a CUDA kernel on the
 card) with the hit's atlas uv interpolated in the walk, and the radiance
 read with one fetch from the prefiltered RGBE atlas.  Multi-room scans
 trace in two passes (`two_pass_cut`) and may seed the walk from an
-occlusion proxy (`proxy_scene`); both are exact.
+occlusion proxy (`proxy_scene`); both are exact.  A baker given only a
+FanScene (and a leaf budget covering it) traces each fan exhaustively
+against every leaf row instead (ops.pallas_fan, another CUDA kernel).
 """
 
 from __future__ import annotations
@@ -26,9 +28,12 @@ from texir_code_tpu_torch.models.tbl import (
     TBL,
     bilinear_rgbe,
     nearest_rgbe,
+    radiance_from_hit,
     rgbe_pack,
     rgbe_prefilter,
 )
+from texir_code_tpu_torch.ops.fan_raycast import FAN_ROW_WIDTH_UV
+from texir_code_tpu_torch.ops.pallas_fan import cast_ray_fans_pallas
 from texir_code_tpu_torch.ops.pallas_culled import (
     cast_fans_culled,
     cast_fans_culled_twopass,
@@ -39,10 +44,14 @@ from texir_code_tpu_torch.ops.pallas_culled import (
 from texir_code_tpu_torch.ops.sampling import generate_dir_soa
 from texir_code_tpu_torch.ops.shading import irradiance_estimator_soa
 
-# paths of the JAX baker that this slice does not port yet
+# paths of the JAX baker that are not ported yet
 _TODO_TRAVERSAL = (
-    "ROADMAP.md queue B, B2/B3 (the exhaustive fan stream) and queue A item 5 "
-    "(BVH traversal): bake without a ClusterScene"
+    "ROADMAP.md queue A item 5 (BVH traversal): bake with neither a "
+    "ClusterScene nor a FanScene"
+)
+_TODO_FAN_EXACT = (
+    "ROADMAP.md queue A item 5 (cast_ray_fans_exact, the BVH traversal): "
+    "a FanScene bake with max_leaves below the scene's leaf count"
 )
 _TODO_PRIM = "ROADMAP.md queue A item 5 (radiance_from_hit): cluster rows without uv"
 
@@ -173,6 +182,8 @@ class IrradianceTextureBaker:
         spp: int = 2048,
         texel_batch: int = 4096,
         surface_eps: float = 1e-2,
+        fan_scene=None,
+        max_leaves: int = 768,
         cluster_scene=None,
         wedges: int = 4,
     ):
@@ -182,15 +193,22 @@ class IrradianceTextureBaker:
                 2048 in configs/hdrhouse_ir_texture.conf).
             texel_batch: texels per bake step.
             surface_eps: ray-origin offset along the normal.
+            fan_scene: ops.fan_raycast.FanScene — without a cluster scene,
+                each texel's fan is traced exhaustively against every leaf
+                row (ops.pallas_fan); this needs max_leaves >= its leaf
+                count (the budgeted traversal is not ported yet).
+            max_leaves: the fan path's per-texel leaf budget.
             cluster_scene: ops.pallas_culled.ClusterScene — the culled,
-                early-exiting walk (exact).  Required: the traversal and
-                exhaustive-fan fallbacks are not ported yet.
+                early-exiting walk (exact); takes precedence over
+                fan_scene.
             wedges: direction wedges per texel (spp/wedges rays per row).
         """
         self.tbl = tbl
         self.spp = spp
         self.texel_batch = texel_batch
         self.surface_eps = surface_eps
+        self.fan_scene = fan_scene
+        self.max_leaves = max_leaves
         self.cluster_scene = cluster_scene
         self.wedges = wedges
         self.fan_block = 32
@@ -223,6 +241,10 @@ class IrradianceTextureBaker:
         # rgbe_supersample=0 selects the exact 4-fetch bilinear instead
         self.rgbe_supersample = 2
         self._rgbe_pre = rgbe_prefilter(tbl.planes, 2)
+        self._fan_has_uv = (
+            fan_scene is not None
+            and fan_scene.rows.shape[1] >= FAN_ROW_WIDTH_UV
+        )
 
     @property
     def device(self) -> torch.device:
@@ -299,6 +321,32 @@ class IrradianceTextureBaker:
             dim=-1,
         )
 
+    def _bake_fan_impl(self, points, normals, texel_ids, seed, samples=None):
+        """Exhaustive fan path: one texel = one shared-origin row of its spp
+        directions (no octant sort, no wedges), traced against every leaf
+        row; with uv rows the stream interpolates the hit's atlas uv
+        (one RGBE fetch a ray), else radiance comes from prim +
+        barycentrics (radiance_from_hit)."""
+        if self.max_leaves < self.fan_scene.num_leaves:
+            raise NotImplementedError(_TODO_FAN_EXACT)
+        nrm = tuple(normals[:, k] for k in range(3))
+        dirs = generate_dir_soa(
+            nrm, self.spp, mode="uniform", samples=samples,
+            row_ids=texel_ids, seed=seed,
+        )
+        origins = tuple(
+            points[:, k] + self.surface_eps * normals[:, k] for k in range(3)
+        )
+        hit = cast_ray_fans_pallas(
+            self.fan_scene, origins, dirs, t_min=0.0, fan_block=8,
+            leaf_block=32, emit_uv=self._fan_has_uv,
+        )
+        if self._fan_has_uv:
+            return self._fan_estimate_uv(hit.t, hit.u, hit.v, dirs, nrm)
+        lighting = radiance_from_hit(self.tbl, hit)
+        return torch.stack(
+            irradiance_estimator_soa(lighting, dirs, nrm, self.spp), dim=-1)
+
     def bake_batch(
         self,
         points: torch.Tensor,
@@ -313,9 +361,13 @@ class IrradianceTextureBaker:
         so results do not depend on batching.  samples: optional
         [B, spp, 2] uniforms that replace the drawn ones (parity tests feed
         the JAX reference's own draws through it)."""
-        if self.cluster_scene is None:
-            raise NotImplementedError(_TODO_TRAVERSAL)
-        return self._bake_culled_impl(points, normals, texel_ids, seed, samples)
+        if self.cluster_scene is not None:
+            return self._bake_culled_impl(points, normals, texel_ids, seed,
+                                          samples)
+        if self.fan_scene is not None:
+            return self._bake_fan_impl(points, normals, texel_ids, seed,
+                                       samples)
+        raise NotImplementedError(_TODO_TRAVERSAL)
 
     def bake(
         self,

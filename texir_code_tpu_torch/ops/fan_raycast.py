@@ -9,8 +9,12 @@ s1 = (e2 × n)/|n|², s2 = (n × e1)/|n|², so that for a ray o + t·d:
     v = (o − p0)·s2 + t·(d·s2)
 
 `FanScene.from_flat` packs a FlatBVH's leaves into such rows; the culled
-cluster walk (ops.pallas_culled) re-packs them cluster-major.  The packing
-is numpy and equal, array for array, to the JAX package's.
+cluster walk (ops.pallas_culled) re-packs them cluster-major, and the
+exhaustive stream (ops.pallas_fan) reads them as they are
+(`FanScene.device_rows`).  The packing is numpy and equal, array for
+array, to the JAX package's.  `closest_hit_block` is the test of a block
+of these triangles in plain PyTorch, the inner loop of both kernels'
+plain versions.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from texir_code_tpu_torch.geometry.bvh import FlatBVH
 
@@ -38,10 +43,24 @@ class FanScene:
 
     rows: np.ndarray  # [L, 72 | 96] float32 (prim ids as float bit patterns)
     diameter: float   # scene AABB diagonal, rounded to float32
+    # the rows as a tensor per device, uploaded once (device_rows)
+    _device_rows: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def num_leaves(self) -> int:
         return int(self.rows.shape[0])
+
+    def device_rows(self, device) -> torch.Tensor:
+        """The rows as a float32 tensor on `device`, copied there on the
+        first call and cached: the exhaustive stream
+        (ops.pallas_fan) reads them on every call."""
+        dev = torch.device(device)
+        rows = self._device_rows.get(dev)
+        if rows is None:
+            rows = torch.from_numpy(self.rows).to(dev).contiguous()
+            self._device_rows[dev] = rows
+        return rows
 
     @classmethod
     def from_flat(cls, bvh: FlatBVH, triangle_uvs=None) -> "FanScene":
@@ -99,3 +118,72 @@ class FanScene:
             rows=rows,
             diameter=float(np.float32(np.linalg.norm(hi - lo))),
         )
+
+
+_DET_EPS = 1e-12
+_BARY_EPS = 1e-7
+
+
+def closest_hit_block(tri, uvc, pids, origins, dirs, hit, t_min: float,
+                      emit_uv: bool):
+    """Closest hits of ray sets against blocks of K plane-dual triangles:
+    the plain PyTorch form of the kernels' inner loop (ops.pallas_culled,
+    ops.pallas_fan).
+
+    Every accept test but `t < t_best` is the triangle's own, so a block's
+    hit is its smallest accepted t — the first such triangle in row order
+    on a tie (`torch.min` returns the first minimum), as the kernels'
+    sequential loop keeps it — and it replaces the running hit only when
+    strictly closer.  The arithmetic is the kernels', in their order.
+
+    Args:
+        tri: [N, K, 15] triangle records (rows[:, 12:72] per row, 4 a row,
+            in row order) for N ray sets (N = 1: shared by all).
+        uvc: [N, K, 6] atlas-uv coefficients (rows[:, 72:96]), with emit_uv.
+        pids: [N, K] int32 prim ids, or None (prim is kept as it is).
+        origins / dirs: 3-tuples of [N, A, B] (origins may be [N, A, 1]).
+        hit: (t, prim, u, v) running state, each [N, A, B].
+    Returns:
+        the updated (t, prim, u, v).
+    """
+    n, k = tri.shape[:2]
+
+    def col(i):
+        return tri[:, :, i].reshape(n, k, 1, 1)
+
+    ox, oy, oz = (a.unsqueeze(1) for a in origins)
+    dx, dy, dz = (a.unsqueeze(1) for a in dirs)
+    nx, ny, nz, pd = (col(i) for i in range(4))
+    s1x, s1y, s1z, p0s1 = (col(4 + i) for i in range(4))
+    s2x, s2y, s2z, p0s2 = (col(8 + i) for i in range(4))
+    no = nx * ox + ny * oy + nz * oz
+    ou = s1x * ox + s1y * oy + s1z * oz - p0s1
+    ov = s2x * ox + s2y * oy + s2z * oz - p0s2
+    nd = nx * dx + ny * dy + nz * dz
+    ok_nd = torch.abs(nd) > _DET_EPS
+    inv_nd = torch.where(ok_nd, 1.0 / torch.where(ok_nd, nd, 1.0), 0.0)
+    t = (pd - no) * inv_nd
+    du = s1x * dx + s1y * dy + s1z * dz
+    dv = s2x * dx + s2y * dy + s2z * dz
+    uu = ou + t * du
+    vv = ov + t * dv
+    ok = (ok_nd & (torch.minimum(uu, vv) >= -_BARY_EPS)
+          & (uu + vv <= 1.0 + _BARY_EPS) & (t > t_min))
+    inf = torch.full((), float("inf"), device=t.device)
+    t_k, idx = torch.min(torch.where(ok, t, inf), dim=1)
+
+    def pick(a):  # [N, K] per-triangle values at each ray's triangle
+        return torch.gather(a, 1, idx.reshape(n, -1)).reshape(idx.shape)
+
+    uk = torch.gather(uu, 1, idx.unsqueeze(1)).squeeze(1)
+    vk = torch.gather(vv, 1, idx.unsqueeze(1)).squeeze(1)
+    if emit_uv:
+        w = [pick(uvc[:, :, i]) for i in range(6)]
+        uk, vk = (w[0] + uk * w[1] + vk * w[2],
+                  w[3] + uk * w[4] + vk * w[5])
+    t_best, prim, u_best, v_best = hit
+    take = t_k < t_best
+    if pids is not None:
+        prim = torch.where(take, pick(pids), prim)
+    return (torch.where(take, t_k, t_best), prim,
+            torch.where(take, uk, u_best), torch.where(take, vk, v_best))

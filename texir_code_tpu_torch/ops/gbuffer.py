@@ -6,7 +6,8 @@ The reference detaches every G-buffer and disables antialiasing, so one
 ray per pixel through the same frustum gives what `dr.rasterize` carries:
 exact per-pixel prim ids and barycentrics.  The rays go through the culled
 cluster walk (kernel B1 on the card) with one shared origin per row of
-pixels.
+pixels, or, for a scene with only a FanScene, through the exhaustive leaf
+stream (kernel B2).
 
 Conventions:
   * `mvp` is the transposed (P @ W2C) per face, as the datasets emit it:
@@ -134,9 +135,11 @@ def render_gbuffer(
     row_width: int = 2048,
     proxy=None,
     occluders=None,
+    fan_scene=None,
 ) -> GBuffer:
     """Render cube-face G-buffers by primary-ray casting through the culled
-    walk (the JAX package's `cluster_scene` path).
+    walk (the JAX package's `cluster_scene` path) or, with no cluster
+    scene, the exhaustive fan stream (its `fan_scene` path).
 
     Args:
         mesh: DeviceMesh attribute tensors.
@@ -150,26 +153,37 @@ def render_gbuffer(
         proxy: optional occlusion-proxy ClusterScene whose hits seed the
             walk (exact).
         occluders: optional OccluderSet for exact PVS culling.
+        fan_scene: ops.fan_raycast.FanScene of the same mesh, used when
+            cluster_scene is None: every pixel ray is tested against every
+            leaf row, in rows of 2048 pixels (the knobs above are the
+            culled walk's).
     """
     from texir_code_tpu_torch.ops.pallas_culled import cast_fans_culled
+    from texir_code_tpu_torch.ops.pallas_fan import cast_ray_fans_pallas
 
     nfaces = mvp.shape[0]
     flat = ray_dirs_from_mvp(mvp, res).reshape(-1, 3)
     n = flat.shape[0]
     if n % 128:
         raise ValueError(f"{n} pixels are not a multiple of 128")
-    r_split = min(row_width, n)
+    if cluster_scene is None and fan_scene is None:
+        raise ValueError("render_gbuffer needs a cluster_scene or a fan_scene")
+    r_split = min(row_width if cluster_scene is not None else 2048, n)
     while n % r_split:
         r_split -= 128
     rows = n // r_split
-    hit = cast_fans_culled(
-        cluster_scene,
-        tuple(cam_position[k].expand(rows).contiguous() for k in range(3)),
-        tuple(flat[:, k].reshape(rows, r_split).contiguous()
-              for k in range(3)),
-        t_min=1e-6, fan_block=fan_block, exit_rows=exit_rows,
-        emit_prim=True, proxy=proxy, occluders=occluders,
-    )
+    origins = tuple(cam_position[k].expand(rows).contiguous()
+                    for k in range(3))
+    dirs = tuple(flat[:, k].reshape(rows, r_split).contiguous()
+                 for k in range(3))
+    if cluster_scene is not None:
+        hit = cast_fans_culled(
+            cluster_scene, origins, dirs, t_min=1e-6, fan_block=fan_block,
+            exit_rows=exit_rows, emit_prim=True, proxy=proxy,
+            occluders=occluders,
+        )
+    else:
+        hit = cast_ray_fans_pallas(fan_scene, origins, dirs, t_min=1e-6)
     hit = RayHit(t=hit.t.reshape(-1), prim=hit.prim.reshape(-1),
                  u=hit.u.reshape(-1), v=hit.v.reshape(-1))
 

@@ -49,17 +49,13 @@ from texir_code_tpu_torch.ops.fan_raycast import (
     _TRI_STRIDE,
     _UV_BASE,
     FanScene,
+    closest_hit_block,
 )
 from texir_code_tpu_torch.ops.raycast import RayHit, Vec3s
 
-_DET_EPS = 1e-12
-_BARY_EPS = 1e-7
 _ROW_PAD = 128          # cluster rows padded to 128 columns
+_PLAIN_ELEMS = 1 << 25  # per-triangle terms the plain walk holds at once
 _PRIM_ROWS = 8          # prims3 is [C, 8, 128] int32, as the JAX package's
-
-# the mode of the TPU kernel that is not ported yet (ROADMAP.md, queue B)
-_TODO_B1 = "ROADMAP.md queue B, B1 (e)"
-
 
 @dataclasses.dataclass
 class ClusterScene:
@@ -438,6 +434,7 @@ def culled_walk_plain(
     count, cand, dist, t_cap: float, origins, dx, dy, dz, rows3, prims3,
     er: int, t_min: float = 0.0, emit_uv: bool = False,
     emit_prim: bool = True, per_ray: bool = False, seed=None,
+    visits: bool = False,
 ):
     """The walk in plain PyTorch: the CPU path and the kernel's oracle.
 
@@ -446,7 +443,7 @@ def culled_walk_plain(
     group-wide exit: a group is live while j < count and the next bound is
     below min(max t_best over the group, t_cap), its threshold starting at
     inf (seeded or not) and refreshed after each visit.  Only live groups
-    are gathered and tested."""
+    are gathered and tested; with `visits` it counts each group's visits."""
     g = count.shape[0]
     n_rows, r = dx.shape
     c = cand.shape[1]
@@ -471,64 +468,46 @@ def culled_walk_plain(
         prim = torch.full(shape, -1, dtype=torch.int32, device=dev)
     thr = torch.full((g,), float("inf"), device=dev)
     live = torch.ones((g,), dtype=torch.bool, device=dev)
-    count = count.long()
+    n_visited = torch.zeros((g,), dtype=torch.int32, device=dev)
+    count_l = count.long()
+    k = 4 * lb
+    # live groups tested at once: bounds each block's [n, K, er, R] terms
+    per_chunk = max(1, _PLAIN_ELEMS // (k * er * r))
     for j in range(c):
-        live &= (j < count) & (dist[:, j] < torch.clamp_max(thr, t_cap))
-        idx = torch.nonzero(live).squeeze(1)
-        if idx.numel() == 0:
+        live &= (j < count_l) & (dist[:, j] < torch.clamp_max(thr, t_cap))
+        idx_all = torch.nonzero(live).squeeze(1)
+        if idx_all.numel() == 0:
             break
-        cid = cand[idx, j].long()
-        rows = rows3[cid]  # [n, lb, 128]
-        pids = prims3[cid].reshape(len(cid), -1) if emit_prim else None
-        ox, oy, oz = (a[idx] for a in o)
-        ddx, ddy, ddz = (a[idx] for a in d)
-        tb, pb, ub, vb = t_best[idx], prim[idx], u_best[idx], v_best[idx]
-        for jr in range(lb):
-            for tri in range(4):
-                base = _TRI_BASE + _TRI_STRIDE * tri
-
-                def col(k, jr=jr):
-                    return rows[:, jr, k].reshape(-1, 1, 1)
-
-                nx, ny, nz, pd = (col(base + k) for k in range(4))
-                s1x, s1y, s1z, p0s1 = (col(base + 4 + k) for k in range(4))
-                s2x, s2y, s2z, p0s2 = (col(base + 8 + k) for k in range(4))
-                no = nx * ox + ny * oy + nz * oz
-                ou = s1x * ox + s1y * oy + s1z * oz - p0s1
-                ov = s2x * ox + s2y * oy + s2z * oz - p0s2
-                nd = nx * ddx + ny * ddy + nz * ddz
-                # |nd| <= eps is rejected below; inf/nan there compare False
-                inv_nd = 1.0 / nd
-                t = (pd - no) * inv_nd
-                du = s1x * ddx + s1y * ddy + s1z * ddz
-                dv = s2x * ddx + s2y * ddy + s2z * ddz
-                uu = ou + t * du
-                vv = ov + t * dv
-                ok = (
-                    (torch.abs(nd) > _DET_EPS)
-                    & (torch.minimum(uu, vv) >= -_BARY_EPS)
-                    & (uu + vv <= 1.0 + _BARY_EPS)
-                    & (t > t_min)
-                    & (t < tb)
-                )
-                tb = torch.where(ok, t, tb)
-                if emit_prim:
-                    pid = pids[:, 4 * jr + tri].reshape(-1, 1, 1)
-                    pb = torch.where(ok, pid, pb)
-                if emit_uv:
-                    ubase = _UV_BASE + 6 * tri
-                    au = col(ubase) + uu * col(ubase + 1) + vv * col(ubase + 2)
-                    av = (col(ubase + 3) + uu * col(ubase + 4)
-                          + vv * col(ubase + 5))
-                    ub = torch.where(ok, au, ub)
-                    vb = torch.where(ok, av, vb)
-                else:
-                    ub = torch.where(ok, uu, ub)
-                    vb = torch.where(ok, vv, vb)
-        t_best[idx], prim[idx], u_best[idx], v_best[idx] = tb, pb, ub, vb
-        thr[idx] = tb.amax(dim=(1, 2))
+        n_visited += live.to(torch.int32)
+        for idx in idx_all.split(per_chunk):
+            cid = cand[idx, j].long()
+            rows = rows3[cid]  # [n, lb, 128]
+            n = len(cid)
+            tri = rows[:, :, _TRI_BASE:_TRI_BASE + 4 * _TRI_STRIDE].reshape(
+                n, k, _TRI_STRIDE)
+            uvc = (rows[:, :, _UV_BASE:_UV_BASE + 24].reshape(n, k, 6)
+                   if emit_uv else None)
+            pids = prims3[cid].reshape(n, -1)[:, :k] if emit_prim else None
+            hit = closest_hit_block(
+                tri, uvc, pids, tuple(a[idx] for a in o),
+                tuple(a[idx] for a in d),
+                (t_best[idx], prim[idx], u_best[idx], v_best[idx]), t_min,
+                emit_uv)
+            t_best[idx], prim[idx], u_best[idx], v_best[idx] = hit
+            thr[idx] = hit[0].amax(dim=(1, 2))
+    if visits:
+        u_best, v_best = _visit_telemetry(n_visited, count, er, r)
     return tuple(
         a.reshape(n_rows, r) for a in (t_best, prim, u_best, v_best)
+    )
+
+
+def _visit_telemetry(n_visited, count, er: int, r: int):
+    """The TPU kernel's debug_emit_visits outputs: u = clusters each exit
+    group visited, v = its candidate count, float32 over its er×R rays."""
+    return tuple(
+        a.to(torch.float32)[:, None].expand(-1, er * r).reshape(-1, er, r)
+        for a in (n_visited, count)
     )
 
 
@@ -556,26 +535,28 @@ def _culled_walk_lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.restype = ctypes.c_int
         fn.argtypes = [p, p, p, i, i, f, f, p, p, p, p, i, i, p, p, i, i, i,
-                       i, p, p, p, p, p, p, p, p, p]
+                       i, p, p, p, p, p, p, p, p, p, p]
     return lib
 
 
 def walk_mode(per_ray: bool, emit_uv: bool, emit_prim: bool,
-              seeded: bool = False) -> str:
+              seeded: bool = False, visits: bool = False) -> str:
     """Name of a kernel mode, as `culled_walk_cuda.launches` counts it:
     'shared' or 'per_ray' origins, then '_uv' and/or '_prim' outputs, then
-    '_seeded' when the hit state starts from a seed (the bake runs
-    'shared_uv', the G-buffer 'shared_prim', the specular trace
-    'per_ray_uv'; with an occlusion proxy, each of them '_seeded')."""
+    '_seeded' when the hit state starts from a seed, then '_visits' with
+    the visit telemetry (the bake runs 'shared_uv', the G-buffer
+    'shared_prim', the specular trace 'per_ray_uv'; with an occlusion
+    proxy, each of them '_seeded')."""
     name = "per_ray" if per_ray else "shared"
     return (name + ("_uv" if emit_uv else "") + ("_prim" if emit_prim else "")
-            + ("_seeded" if seeded else ""))
+            + ("_seeded" if seeded else "") + ("_visits" if visits else ""))
 
 
 def culled_walk_cuda(
     count, cand, dist, t_cap: float, origins, dx, dy, dz, rows3, prims3,
     er: int, t_min: float = 0.0, emit_uv: bool = False,
     emit_prim: bool = True, per_ray: bool = False, seed=None,
+    visits: bool = False,
 ):
     """Launch `csrc/culled_walk.cu` on the current stream (see culled_walk).
 
@@ -626,6 +607,8 @@ def culled_walk_cuda(
     prim = torch.empty(shape, dtype=torch.int32, device=dev)
     u = torch.empty(shape, dtype=torch.float32, device=dev)
     v = torch.empty(shape, dtype=torch.float32, device=dev)
+    n_visited = (torch.zeros((g,), dtype=torch.int32, device=dev)
+                 if visits else None)
     lib = _culled_walk_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -634,13 +617,18 @@ def culled_walk_cuda(
             float(t_cap), float(t_min), origins.data_ptr(), dx.data_ptr(),
             dy.data_ptr(), dz.data_ptr(), r, er, rows3.data_ptr(),
             prims3.data_ptr(), lb, int(per_ray), int(emit_uv),
-            int(emit_prim), *seed_ptrs, t.data_ptr(), prim.data_ptr(),
-            u.data_ptr(), v.data_ptr(), stream,
+            int(emit_prim), *seed_ptrs,
+            None if n_visited is None else n_visited.data_ptr(),
+            t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"culled_walk launch failed: cudaError {err}")
-    mode = walk_mode(per_ray, emit_uv, emit_prim, seed is not None)
+    mode = walk_mode(per_ray, emit_uv, emit_prim, seed is not None, visits)
     culled_walk_cuda.launches[mode] += 1
+    if visits:
+        u, v = (a.reshape(shape) for a in _visit_telemetry(n_visited, count,
+                                                            er, r))
     return t, prim, u, v
 
 
@@ -652,6 +640,7 @@ def culled_walk(
     count, cand, dist, t_cap: float, origins, dx, dy, dz, rows3, prims3,
     er: int, t_min: float = 0.0, emit_uv: bool = False,
     emit_prim: bool = True, per_ray: bool = False, seed=None,
+    visits: bool = False,
 ):
     """Closest hits of ray rows over per-group candidate cluster lists.
 
@@ -668,6 +657,9 @@ def culled_walk(
         seed: optional (t, prim, u, v), each [G*er, R] (float32, int32,
             float32, float32): valid hits the hit state starts from instead
             of (inf, -1, 0, 0); prim is read only with emit_prim.
+        visits: the TPU kernel's debug_emit_visits telemetry: (u, v)
+            become the clusters each exit group visited and its candidate
+            count, as float32 over the group's rays.
     Returns:
         (t, prim, u, v), each [G*er, R]: t = +inf and prim = -1 on miss;
         prim is -1 throughout unless emit_prim; (u, v) are barycentrics,
@@ -676,7 +668,7 @@ def culled_walk(
     On CUDA tensors this launches the CUDA kernel (culled_walk_cuda); on
     CPU tensors it runs culled_walk_plain."""
     args = (count, cand, dist, t_cap, origins, dx, dy, dz, rows3, prims3, er,
-            t_min, emit_uv, emit_prim, per_ray, seed)
+            t_min, emit_uv, emit_prim, per_ray, seed, visits)
     if dx.device.type == "cuda":
         return culled_walk_cuda(*args)
     if dx.device.type == "cpu":
@@ -828,17 +820,14 @@ def cast_fans_culled(
         stream_cands: accepted for signature parity; on the GPU the
             candidate tables live in device memory anyway, so it changes
             nothing.
-        debug_emit_visits: not ported yet.
+        debug_emit_visits: telemetry instead of (u, v): u = clusters each
+            exit group visited, v = its candidate count, as float32 over
+            the group's rays (t and prim are the hits).
     Returns:
         RayHit of shape [T', R] — exact closest hits (when t_cap_frac
         covers the scene).
     """
     del stream_cands  # no shared-memory table limit to stream around
-    if debug_emit_visits:
-        raise NotImplementedError(
-            f"cast_fans_culled: debug_emit_visits is not ported yet "
-            f"({_TODO_B1})"
-        )
     if proxy is not None and seed is None:
         # occluders stay valid on the proxy subset: culling only weakens a
         # seed toward inf (a seed must be a valid hit or inf; both are)
@@ -852,7 +841,7 @@ def cast_fans_culled(
         emit_uv=emit_uv, per_ray=per_ray, exit_rows=exit_rows,
         emit_prim=emit_prim, t_cap_frac=t_cap_frac, cull=cull, seed=seed,
         occluders=occluders,
-    ))
+    ), visits=debug_emit_visits)
     tp = dirs[0].shape[0]
     return RayHit(t=t[:tp], prim=prim[:tp], u=u[:tp], v=v[:tp])
 
