@@ -8,11 +8,12 @@ the apartment (make_apartment_scene(atlas_res=256, subdiv=24)) and the
 multi-room building (make_building_scene(atlas_res=256, subdiv=28), 104,076
 triangles): export the scan, bake its IrrT, train its materials; on the
 apartment also the FanScene-only configuration (no ClusterScene: every ray
-against every leaf row, kernels B2/B3) and the re-render error tester.
+against every leaf row, kernels B2/B3), the Mat step with the sampler's
+segment-sum backward (kernel S) and the four testers.
 Phases (any failure exits non-zero; nothing is caught):
   1. device: torch's view of the card, and nvidia-smi's name and power limit;
   2. build: every CUDA kernel of the port from csrc/ (culled_walk,
-     fan_stream), one nvcc each, all started together;
+     fan_stream, scatter_acc), one nvcc each, all started together;
   3. kernels: each culled-walk mode against its plain PyTorch version on
      the card at the shapes the main path gives it, with times and the
      work bound — the bake's wedge rows (1024 texels × 2048 spp, lb 4),
@@ -25,56 +26,74 @@ Phases (any failure exits non-zero; nothing is caught):
      rays (emit_uv and prim) — and B2 against B1 on the bake rows;
   5. visits: B1's debug_emit_visits telemetry on the bake rows through
      cast_fans_culled, against the plain walk;
-  6. building-kernels: the walk at the building's shapes — one bake
+  6. sampler-kernels: the sampler-backward harness
+     (texir_code_tpu_torch/scripts/sampler_bwd_variants.py) — kernel S's
+     two modes, index_put_, index_add_ and sort + index_add_ on 786,432
+     taps at the JAX harnesses' (S, C) and on the flat albedo (2048²) and
+     roughness (4096²) pyramids with the exact-trilinear taps of one bench
+     view — kernel S against its plain version and index_add_;
+  7. building-kernels: the walk at the building's shapes — one bake
      batch's wedge rows (4096 texels, fb 16, er 8, lb 4) unseeded and
      seeded by the k-1024 occlusion proxy, its two-pass trace (cut 0.25)
      and pass-2 stragglers, and one view's G-buffer and specular rays from
      the bench camera seeded by the k-512 proxy (lb 8); seeded, unseeded,
      two-pass and single-pass hits must agree;
-  7. export: the apartment written to the reference's dataset layout by
+  8. export: the apartment written to the reference's dataset layout by
      the port's exporter (4 views, pano 256×512);
-  8. slice: `train --trainstage IrrT` through the port's CLI on the
+  9. slice: `train --trainstage IrrT` through the port's CLI on the
      exported mesh at --irt_res 1024 and 2048 spp (it writes the irt.hdr
      the Mat stage reads);
-  9. mat: `train --trainstage Mat --max_epochs 1` through the port's CLI
+ 10. mat: `train --trainstage Mat --max_epochs 1` through the port's CLI
      with the bench atlases (albedo 2048², roughness 4096²) and
      sample_light [32, 16]: seconds per step of each substage, stage
      seconds with set-up, launches per kernel mode;
- 10. fan-slice: the apartment's FanScene-only bake at 1024² × 2048 spp
+ 11. fan-slice: the apartment's FanScene-only bake at 1024² × 2048 spp
      (IrradianceTextureBaker(tbl, fan_scene=fan, max_leaves=...)), held
      against the slice's culled bake of the same seed;
- 11. fan-mat: stage-2 steps of the Mat model with cluster_scene = None
+ 12. fan-mat: stage-2 steps of the Mat model with cluster_scene = None
      (and two with the exact specular fetch), and one step against the
      culled model's;
- 12. error: `test --teststage Error` through the port's CLI on the export
-     and the atlases of 9 (sample_light [1024, 256], shade_chunk 4096),
+ 13. error: `test --teststage Error` through the port's CLI on the export
+     and the atlases of 10 (sample_light [1024, 256], shade_chunk 4096),
      then one view by the FanScene-only model against the culled one;
- 13. profile: one full bake batch under torch.profiler;
- 14. mat-profile: one cached-view stage-2 step (forward, backward, Adam,
+ 14. testers: `test --teststage Editing` (a test.editing block), `View
+     --num_frames 4` and `Relighting --relight_mode emitter` through the
+     port's CLI on the same export, atlases and sample_light, with the
+     scene's seg atlas as 0_seg_gray.png; an unedited Editing frame
+     against the Error render (bit-equal); one relit view profiled;
+ 15. profile: one full bake batch under torch.profiler;
+ 16. mat-profile: one cached-view stage-2 step (forward, backward, Adam,
      clamp) under torch.profiler, with the sampler backward's scatter
      named apart;
- 15. building-export: the building with one camera per room (9 views);
- 16. building-proxy: its IrrT at --irt_res 256 without and with
+ 17. mat-segsum: the stage-2 step with ops.texture.SEGSUM_BACKWARD off and
+     on, in exact trilinear and stochastic mode: loss bit-equal and
+     gradients within relative L2 1e-5 (deterministic algorithms), step
+     times, kernel S launches, the sampler backward's device time;
+ 18. building-export: the building with one camera per room (9 views);
+ 19. building-proxy: its IrrT at --irt_res 256 without and with
      train.bake_proxy_k=1024: the raw bakes must be equal;
- 17. building-slice: its IrrT at --irt_res 1024 (2048 spp) with fb 16,
+ 20. building-slice: its IrrT at --irt_res 1024 (2048 spp) with fb 16,
      er 8, train.two_pass_cut=0.25 and occluders (bench.py's big scene);
- 18. building-mat: its Mat stage with the apartment's settings plus
+ 21. building-mat: its Mat stage with the apartment's settings plus
      models.render.proxy_k=512 and spec_two_pass_cut=0.25;
- 19. building-profile: one two-pass bake batch and one cached-view
+ 22. building-profile: one two-pass bake batch and one cached-view
      stage-2 step (knobs off, two-pass only, proxy only) under
      torch.profiler;
- 20. reference: the card's bake_batch against the CPU's;
- 21. mat-reference: one stage-2 step on the card against the CPU at pano
+ 23. reference: the card's bake_batch against the CPU's;
+ 24. mat-reference: one stage-2 step on the card against the CPU at pano
      64×128 with full atlases and the same injected sample shifts;
- 22. error-reference: one view's stage-2 eval render (shade_chunk 4096)
+ 25. error-reference: one view's stage-2 eval render (shade_chunk 4096)
      on the card against the CPU at pano 64×128, spp 16;
- 23. building-reference: the card's two-pass + proxy bake_batch against
+ 26. relit-reference: one view's relit render on the card against the CPU
+     at pano 64×128, sample_light [32, 16];
+ 27. building-reference: the card's two-pass + proxy bake_batch against
      the CPU's on 64 building texels.
-Kernel launch counts are zeroed just before each main-path run (5, 8, 9,
-10, 11, 12, each run of 16, 17, 18) and read just after; every kernel
-mode of that run must have run.  Then a `{"kernels": [...]}` line and,
-last, the `{"ok": true, ...}` line.  Without a CUDA device, or without
-the package beside it, it exits non-zero and prints no result.
+Kernel launch counts are zeroed just before each main-path run (5, 6, 9,
+10, 11, 12, 13, each tester of 14, the switch-on steps of 17, each run of
+19, 20, 21) and read just after; every kernel mode of that run must have
+run.  Then a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
+line.  Without a CUDA device, or without the package beside it, it exits
+non-zero and prints no result.
 """
 
 import json
@@ -125,6 +144,12 @@ FAN_MODES = ("shared_uv", "shared_prim", "per_ray_uv", "per_ray_prim")
 EVAL_SAMPLE_LIGHT = (1024, 256)
 EVAL_CHUNK = 4096
 FAN_MAT_STEPS = 6
+# kernel S, the scatter-accumulator of the sampler's segment-sum backward
+SCATTER_SOURCE = "texir_code_tpu_torch/csrc/scatter_acc.cu"
+S1_REPLACES = "scripts/sampler_bwd_variants2.py:110"
+S2_REPLACES = "scripts/sampler_bwd_variants3.py:52"
+SEGSUM_STEPS = 8
+RELIT_REF_LIGHT = (32, 16)  # the relit card-vs-CPU check (diffuse, specular)
 
 
 def log(msg=""):
@@ -147,7 +172,7 @@ def phase_device(torch):
 def phase_build():
     from texir_code_tpu_torch.ops import cuda_build
 
-    names = ["culled_walk", "fan_stream"]
+    names = ["culled_walk", "fan_stream", "scatter_acc"]
     t0 = time.time()
     cuda_build.build(names)  # one nvcc per source, all started together
     dt = time.time() - t0
@@ -745,8 +770,10 @@ def phase_mat_profile(torch, path_mesh, tmp):
         f"kernel launches, {busy:.2f} ms on the card ({len(kern)} kernel "
         f"names); idle share "
         + (f"{max(0.0, 1 - busy / wall_ms):.3f}" if busy else "not measured"))
-    log(f"[mat-profile]   culled_walk {walk:.3f} ms; sampler-backward scatter "
-        f"{sum(scatter.values()):.3f} ms in {len(scatter)} kernel names")
+    log(f"[mat-profile]   culled_walk {walk:.3f} ms; gather-backward "
+        f"scatters (the sampler's fetches and the seg prior's per-room "
+        f"class means) {sum(scatter.values()):.3f} ms in {len(scatter)} "
+        f"kernel names")
     for name, ms in sorted(scatter.items(), key=lambda kv: -kv[1])[:3]:
         log(f"[mat-profile]     scatter {ms:9.3f} ms  {name[:80]}")
     top = sorted(kern.items(), key=lambda kv: -kv[1])
@@ -1827,6 +1854,368 @@ def phase_building_reference(torch, dev, b):
         raise SystemExit("building bake_batch on the card disagrees with the CPU")
 
 
+# ---------------------------------------------------------------------------
+# the sampler's segment-sum backward: kernel S (the scatter-accumulator of
+# the JAX harnesses S1/S2), its harness, and the Mat step with the switch;
+# then the editing, novel-view and relighting testers
+# ---------------------------------------------------------------------------
+
+
+def _scatter_row(name, mode, replaces, row, launches):
+    """The kernels-line row of kernel S in `mode` ('acc' or 'acc_sorted')
+    at one harness row's shape."""
+    v = row[mode]
+    return dict(name=name, route="cuda", source=SCATTER_SOURCE,
+                replaces=replaces, launches=launches,
+                max_abs_err=v["max_abs_err"], ms=v["ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by="bytes", library_ms=row["index_add"]["ms"])
+
+
+def bench_view(torch, dev, syn):
+    """The bench apartment's Mat model (pano 256x512, sample_light [32,
+    16], lb 8, occluders), the bench atlases and camera 0's cached view."""
+    from texir_code_tpu_torch.models.material import (
+        MaterialModel,
+        init_material_params,
+    )
+
+    model = MaterialModel(
+        syn.mesh, syn.hdr_texture, np.maximum(syn.hdr_texture, 0.1),
+        pano_res=PANO, sample_light=(32, SPEC_SPP), cluster_lb=MAT_LB,
+        render_knobs=dict(use_occluders=True), device=dev)
+    params = init_material_params(ALBEDO_RES, ROUGH_RES, device=dev)
+    pos, mvp = bench_camera(syn)
+    return model, params, model.precompute_view(params, mvp, pos)
+
+
+def phase_sampler_kernels(torch, dev, syn):
+    """The harness (texir_code_tpu_torch/scripts/sampler_bwd_variants.py)
+    on the card: the JAX harnesses' rows (786,432 taps at each (S, C)) and
+    the Mat rows (the flat albedo and roughness pyramids with the 8
+    exact-trilinear taps of each pixel of camera 0's view).  Kernel S in
+    both modes against scatter_accumulate_plain and against index_add_:
+    every element within the order bound, 2·γ(k-1)·Σ|g| over its k taps
+    (sampler_bwd_variants.order_bound: the most two float32 sums of the
+    same taps in different orders can differ by; an element of one tap
+    exactly).  A share of Σ|g| alone cannot be the limit: index_add_
+    against index_add_ (the plain version) differs by 1.42e-06 of Σ|g| on
+    the Mat albedo row, whose coarse-level texels take thousands of
+    taps."""
+    from texir_code_tpu_torch.ops.scatter_acc import scatter_accumulate_cuda
+    from texir_code_tpu_torch.scripts import sampler_bwd_variants as H
+
+    _, _, view = bench_view(torch, dev, syn)
+    scatter_accumulate_cuda.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rows = H.script_rows(dev, H.N_TAPS, reps=5)
+    rows += H.mat_rows(view["uv"], view["lod_a"], view["lod_r"], reps=5,
+                       albedo_res=ALBEDO_RES, rough_res=ROUGH_RES)
+    torch.cuda.synchronize()
+    launches = dict(scatter_accumulate_cuda.launches)
+    log(f"[sampler-kernels] harness rows in {time.time() - t0:.1f} s; "
+        f"scatter_acc launches {launches}")
+    worst = 0.0
+    for row in rows:
+        log(f"[sampler-kernels] {row['label']}: S={row['rows']} "
+            f"C={row['channels']} N={row['taps']}: bound_ms "
+            f"{row['bound_ms']:.4f}, plain_ms {row['plain_ms']:.4f}, sort "
+            f"(apart from acc_sorted) {row['sort_ms']:.4f} ms")
+        for name in H.VARIANTS:
+            v = row[name]
+            log(f"[sampler-kernels]   {name:11s} {v['ms']:9.4f} ms  max abs "
+                f"err {v['max_abs_err']:.3g}; err / row sum|g| "
+                f"{v['err_over_abs_sum']:.3g} vs plain, "
+                f"{v['err_over_abs_sum_vs_index_add']:.3g} vs index_add_; "
+                f"err / order bound {v['err_over_bound']:.3g} vs plain, "
+                f"{v['err_over_bound_vs_index_add']:.3g} vs index_add_")
+        for name in ("acc", "acc_sorted"):
+            worst = max(worst, row[name]["err_over_bound"],
+                        row[name]["err_over_bound_vs_index_add"])
+    log(f"[sampler-kernels] kernel S worst error / order bound: {worst:.3g} "
+        f"(limit 1)")
+    if worst > 1:
+        raise SystemExit("[sampler-kernels] kernel S disagrees with its "
+                         "plain version or index_add_")
+    for mode in ("unsorted", "sorted"):
+        if launches.get(mode, 0) <= 0:
+            raise SystemExit(f"[sampler-kernels] scatter_acc {mode} never "
+                             f"launched by the harness")
+    albedo = next(r for r in rows if r["label"].startswith("Mat albedo"))
+    return {
+        "unsorted": _scatter_row("scatter_acc[unsorted]", "acc", S1_REPLACES,
+                                 albedo, launches["unsorted"]),
+        "sorted": _scatter_row("scatter_acc[sorted]", "acc_sorted",
+                               S2_REPLACES, albedo, launches["sorted"]),
+    }
+
+
+def _scatter_kernels_ms(kern):
+    """(index_put_ ms, kernel S ms, sort ms) of a profile's kernels by
+    name: every gather backward's index_put_ scatter (the sampler's with
+    the switch off, and the seg prior's: its per-room class means gathered
+    back to the 98,304 pixels, 27 rows), kernel S, and every sort (the
+    segment-sum backward's, the culling's)."""
+    index_put = sum(v for k, v in kern.items()
+                    if "index_put" in k or "indexing_backward" in k)
+    acc = sum(v for k, v in kern.items() if "scatter_sorted" in k
+              or "scatter_unsorted" in k)
+    sort = sum(v for k, v in kern.items() if "sort" in k.lower())
+    return index_put, acc, sort
+
+
+def phase_mat_segsum(torch, dev, path_mesh, tmp, syn):
+    """The apartment's stage-2 step at the bench's width with the sampler's
+    segment-sum backward off and on (ops.texture.SEGSUM_BACKWARD), in exact
+    trilinear mode and with the bench's stochastic knobs: one step on
+    camera 0's cached view with the same injected uniforms under
+    deterministic algorithms — the loss bit-equal, the albedo and
+    roughness gradients within relative L2 1e-5 (the order of the
+    additions) — then timed runner steps and one profiled step each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from texir_code_tpu_torch.ops import texture
+    from texir_code_tpu_torch.ops.scatter_acc import scatter_accumulate_cuda
+    from texir_code_tpu_torch.train.material import adam_for_substage
+
+    runner = mat_runner(torch, path_mesh, tmp, "exps_segsum")
+    model = runner.model
+    runner.build_masks()
+    views, n_rooms = runner._stack_epoch_data([0])
+    for p in (runner.params.albedo, runner.params.roughness):
+        p.requires_grad_(True)
+    opt, sched = adam_for_substage(runner.params, runner.lr, 20, 0.8, 1)
+    rng = np.random.default_rng(15)
+    pos, mvp = bench_camera(syn)
+    res = PANO[1] // 4
+    b = 6 * res * res
+    shift = torch.from_numpy(rng.uniform(0, 1, (b, 5)).astype(np.float32))
+    gt = torch.from_numpy(rng.uniform(0, 1.5, (6, res, res, 3)).astype(np.float32))
+    seg = torch.from_numpy(rng.integers(0, 8, (6, res, res)))
+    room = torch.from_numpy(rng.integers(0, 3, (6, res, res)))
+    view = model.precompute_view(runner.params, mvp, pos)
+    modes = (("exact", 2, False), ("stochastic", 5, True))
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm())
+
+    launches = 0
+    it = 0
+    for mode, cols, stochastic in modes:
+        out = {}
+        torch.use_deterministic_algorithms(True)
+        try:
+            for on in (False, True):
+                texture.SEGSUM_BACKWARD = on
+                try:
+                    out[on] = step_loss_grads(torch, model, runner.params,
+                                              mvp, pos, shift[:, :cols], gt,
+                                              seg, room, view)
+                finally:
+                    texture.SEGSUM_BACKWARD = False
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (l0, a0, r0, _), (l1, a1, r1, _) = out[False], out[True]
+        ga, gr = rel_l2(a1, a0), rel_l2(r1, r0)
+        log(f"[mat-segsum] {mode}: one stage-2 step, segment-sum backward "
+            f"on vs off (deterministic algorithms): loss {l1!r} vs {l0!r} "
+            f"(bit-equal: {l1 == l0}); gradient rel L2 albedo {ga:.3g}, "
+            f"roughness {gr:.3g}")
+        if not (l1 == l0 and ga <= 1e-5 and gr <= 1e-5):
+            raise SystemExit(f"[mat-segsum] {mode}: the segment-sum backward "
+                             f"changes the step")
+        # the runner's steps, as training runs them (default algorithms)
+        model.mip_stochastic = model.bilinear_stochastic = stochastic
+        for on in (False, True):
+            texture.SEGSUM_BACKWARD = on
+            try:
+                runner._step(2, views[0], n_rooms, it, opt, sched)
+                torch.cuda.synchronize()
+                scatter_accumulate_cuda.launches.clear()
+                t0 = time.time()
+                for _ in range(SEGSUM_STEPS):
+                    it += 1
+                    runner._step(2, views[0], n_rooms, it, opt, sched)
+                torch.cuda.synchronize()
+                wall = (time.time() - t0) * 1e3 / SEGSUM_STEPS
+                per_step = (sum(scatter_accumulate_cuda.launches.values())
+                            / SEGSUM_STEPS)
+                if on:
+                    launches += sum(scatter_accumulate_cuda.launches.values())
+                    if scatter_accumulate_cuda.launches["sorted"] <= 0:
+                        raise SystemExit("[mat-segsum] scatter_acc sorted "
+                                         "never launched")
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    it += 1
+                    runner._step(2, views[0], n_rooms, it, opt, sched)
+                    torch.cuda.synchronize()
+            finally:
+                texture.SEGSUM_BACKWARD = False
+            kern, n_launch = profile_kernels(prof)
+            busy = sum(kern.values())
+            put, acc, srt = _scatter_kernels_ms(kern)
+            log(f"[mat-segsum] {mode}, segment-sum {'on ' if on else 'off'}: "
+                f"step wall {wall:.2f} ms ({1e3 / wall:.2f} it/s, "
+                f"{SEGSUM_STEPS} steps); profiled step: {n_launch} launches, "
+                f"{busy:.2f} ms on the card (idle "
+                f"{max(0.0, 1 - busy / wall):.3f}); index_put_ scatters "
+                f"{put:.3f} ms, kernel S {acc:.3f} ms, sorts {srt:.3f} ms; "
+                f"scatter_acc launches a step {per_step:g}")
+    model.mip_stochastic = model.bilinear_stochastic = True
+    return launches
+
+
+def _tester_argv(stage, path_mesh, mat_exps, extra=()):
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", "test_synthetic.conf")
+    argv = ["test", "--conf", conf, "--teststage", stage, "--exps_folder",
+            mat_exps, "--set", f"train.path_mesh_open3d={path_mesh}",
+            "--set", f"train.pano_img_res=[{PANO[0]}, {PANO[1]}]"]
+    return argv + list(extra)
+
+
+def _run_tester(torch, stage, argv, frames, walk_modes):
+    """One `test` stage through the port's CLI: seconds, B1 launches (every
+    mode in walk_modes must run) and its frames (finite, not black)."""
+    import glob
+
+    from texir_code_tpu_torch import cli
+    from texir_code_tpu_torch.data import hdrio
+    from texir_code_tpu_torch.ops.pallas_culled import culled_walk_cuda
+
+    culled_walk_cuda.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(culled_walk_cuda.launches)
+    exps = argv[argv.index("--exps_folder") + 1]
+    files = sorted(glob.glob(os.path.join(exps, f"{stage}-default", "*",
+                                          "plots", "*.hdr")))
+    imgs = [hdrio.read_hdr(f) for f in files]
+    log(f"[testers] test --teststage {stage} via cli: {len(files)} frames "
+        f"in {dt:.2f} s with set-up = {dt / max(1, len(files)):.2f} s a "
+        f"frame; culled_walk launches {launches}; frame means "
+        f"{[round(float(i.mean()), 5) for i in imgs]}")
+    if len(files) != frames:
+        raise SystemExit(f"[testers] {stage} wrote {len(files)} frames, "
+                         f"expected {frames}")
+    if not all(np.isfinite(i).all() and i.max() > 0 for i in imgs):
+        raise SystemExit(f"[testers] {stage} wrote a non-finite or black frame")
+    for mode in walk_modes:
+        if launches.get(mode, 0) <= 0:
+            raise SystemExit(f"[testers] culled_walk {mode} never launched "
+                             f"in {stage}")
+    return dt, launches
+
+
+def phase_testers(torch, syn, path_mesh, mat_exps):
+    """The editing, novel-view and relighting testers through the port's
+    CLI on the apartment's export and [mat]'s atlases, with the scene's
+    seg atlas as 0_seg_gray.png (configs/test_synthetic.conf: sample_light
+    [1024, 256], pano 256x512, shade_chunk 4096): Editing with a
+    test.editing block (seg class 2's albedo over two keyframe segments,
+    class 5's roughness over one, on view 0: 5 frames), View --num_frames
+    4, Relighting --relight_mode emitter on the 4 views.  Then an unedited
+    Editing frame against the Error tester's render of the same view
+    (bit-equal), and one relit view under torch.profiler."""
+    from texir_code_tpu_torch.config import _parse_value, parse_file
+    from texir_code_tpu_torch.data import hdrio
+    from texir_code_tpu_torch.eval.runners import (
+        MatEditingRunner,
+        MatErrorRunner,
+    )
+
+    hdrio.write_png(path_mesh.replace("out1.obj", "0_seg_gray.png"),
+                    syn.seg_texture[::-1].astype(np.uint8))
+    editing = ["--set", "test.editing.classes=[2, 5]",
+               "--set", "test.editing.views=[0]",
+               "--set", "test.editing.frames_per_segment=2",
+               "--set", "test.editing.albedo_2=[[0.9, 0.1, 0.1], "
+                        "[0.1, 0.9, 0.1], [0.1, 0.1, 0.9]]",
+               "--set", "test.editing.roughness_5=[0.05, 0.6]"]
+    out = {}
+    out["Editing"] = _run_tester(
+        torch, "Editing", _tester_argv("Editing", path_mesh, mat_exps,
+                                       editing), 5,
+        ("shared_prim", "per_ray_uv"))
+    out["View"] = _run_tester(
+        torch, "View", _tester_argv("View", path_mesh, mat_exps,
+                                    ["--num_frames", "4"]), 4,
+        ("shared_prim", "per_ray_uv"))
+    out["Relighting"] = _run_tester(
+        torch, "Relighting", _tester_argv("Relighting", path_mesh, mat_exps,
+                                          ["--relight_mode", "emitter"]),
+        VIEWS, ("shared_prim", "per_ray_prim"))
+
+    argv = _tester_argv("Error", path_mesh, mat_exps)
+    conf = parse_file(argv[argv.index("--conf") + 1])
+    for kv in argv[argv.index("--set"):][1::2]:
+        k, _, v = kv.partition("=")
+        conf.put(k, _parse_value(v))
+    ed = MatEditingRunner(conf, exps_root=mat_exps)
+    (frame,) = ed.run(edits={}, num_frames=1, views=[0])
+    err = MatErrorRunner(conf, exps_root=mat_exps)
+    ref = err._render(err._default_dataset()[0])["rgb"].cpu().numpy()
+    n_off = int((frame != ref).any(-1).sum())
+    log(f"[testers] unedited Editing frame of view 0 vs the Error tester's "
+        f"render (seed {err.draw_seed(0)}): {n_off} of "
+        f"{frame.shape[0] * frame.shape[1] * frame.shape[2]} pixels not "
+        f"bit-equal")
+    if n_off:
+        raise SystemExit("[testers] the unedited Editing frame differs from "
+                         "the Error render")
+    item = ed._default_dataset()[0]
+
+    def relit():
+        with torch.no_grad():
+            return ed.model.forward_relit(ed.params, item["cam_to_world"],
+                                          item["cam_position"],
+                                          seed=ed.draw_seed(0))
+
+    profile_once(torch, "testers", "one relit view (sample_light "
+                 f"{list(EVAL_SAMPLE_LIGHT)})", relit)
+    return out
+
+
+def phase_relit_reference(torch, dev, syn):
+    """One view's relit render (EvalMaterialModel.forward_relit,
+    shade_chunk 4096) on the card against the CPU at pano 64x128 with the
+    full atlases, sample_light RELIT_REF_LIGHT and the same injected
+    uniforms: rgb rel L2 <= 1e-4."""
+    from texir_code_tpu_torch.eval.renderer import EvalMaterialModel
+    from texir_code_tpu_torch.models.material import MaterialParams
+
+    rng = np.random.default_rng(16)
+    irt = rng.uniform(0.5, 2.0, (1024, 1024, 3)).astype(np.float32)
+    albedo = rng.uniform(0.2, 0.8, (ALBEDO_RES, ALBEDO_RES, 3)).astype(np.float32)
+    rough = rng.uniform(0.05, 0.7, (ROUGH_RES, ROUGH_RES, 1)).astype(np.float32)
+    pos, mvp = bench_camera(syn)
+    shift = torch.from_numpy(rng.uniform(0, 1, (6 * 32 * 32, 4)).astype(np.float32))
+    rgb, secs = {}, {}
+    for d in (dev, torch.device("cpu")):
+        m = EvalMaterialModel(syn.mesh, syn.hdr_texture, irt,
+                              pano_res=(64, 128), sample_light=RELIT_REF_LIGHT,
+                              render_knobs=dict(use_occluders=True), device=d)
+        m.draw_relit_shift = lambda seed, b: shift
+        p = MaterialParams(torch.tensor(albedo, device=d),
+                           torch.tensor(rough, device=d))
+        t0 = time.time()
+        with torch.no_grad():
+            rgb[d.type] = m.forward_relit(p, mvp, pos)["rgb"].cpu()
+        secs[d.type] = time.time() - t0
+    rel = float((rgb["cuda"] - rgb["cpu"]).norm() / rgb["cpu"].norm())
+    log(f"[relit-reference] relit render card vs cpu, pano 64x128, "
+        f"sample_light {list(RELIT_REF_LIGHT)}, atlases {ALBEDO_RES}^2/"
+        f"{ROUGH_RES}^2: rgb rel L2 {rel:.3g} (card {secs['cuda']:.2f} s, "
+        f"cpu {secs['cpu']:.2f} s)")
+    if not rel <= 1e-4:
+        raise SystemExit("the relit render on the card disagrees with the CPU")
+
+
 def main():
     import torch
 
@@ -1849,6 +2238,7 @@ def main():
     rows.update(phase_mat_kernels(torch, dev, syn))
     fan_rows = phase_fan_kernels(torch, dev, syn, clusters)
     rows["shared_uv_visits"] = phase_visits(torch, dev, clusters, occ, syn)
+    s_rows = phase_sampler_kernels(torch, dev, syn)
     b = building_scene(torch, dev)
     rows.update(phase_building_kernels(torch, dev, b))
     log(f"[time] kernels checked at {time.time() - t_start:.1f} s")
@@ -1867,8 +2257,11 @@ def main():
             fan_rows[mode]["launches"] = fan_launches[mode]
         rows["per_ray_prim"]["launches"] = fan_launches["culled:per_ray_prim"]
         phase_error(torch, path_mesh, tmp, os.path.join(tmp, "exps"))
+        phase_testers(torch, syn, path_mesh, os.path.join(tmp, "exps"))
         phase_profile(torch, dev, clusters, occ, syn)
         phase_mat_profile(torch, path_mesh, tmp)
+        s_rows["sorted"]["launches"] = phase_mat_segsum(torch, dev, path_mesh,
+                                                        tmp, syn)
         log(f"[time] apartment path done at {time.time() - t_start:.1f} s")
         bpath = phase_building_export(torch, b["syn"], tmp)
         launches = phase_building_proxy(torch, b["syn"], bpath, tmp)
@@ -1884,13 +2277,15 @@ def main():
     phase_reference(torch, dev, clusters, occ, syn)
     phase_mat_reference(torch, dev, syn)
     phase_error_reference(torch, dev, syn)
+    phase_relit_reference(torch, dev, syn)
     phase_building_reference(torch, dev, b)
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [rows[k] for k in (
         "shared_uv", "shared_prim", "per_ray_uv", "shared_uv@building",
         "shared_uv_seeded", "per_ray_uv@building", "shared_prim_seeded",
         "per_ray_uv_seeded", "per_ray_prim", "shared_uv_visits")]
-        + [fan_rows[m] for m in FAN_MODES]}))
+        + [fan_rows[m] for m in FAN_MODES]
+        + [s_rows["unsorted"], s_rows["sorted"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -586,3 +586,95 @@ def test_fan_scene_only_paths_on_card():
     assert F.fan_stream_cuda.launches["per_ray_uv"] == 1
     np.testing.assert_allclose(rgb["cuda"].numpy(), rgb["cpu"].numpy(),
                                rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# kernel S: the scatter-accumulator (csrc/scatter_acc.cu)
+# ---------------------------------------------------------------------------
+
+
+def _scatter_taps(n, s, c, seed):
+    rng = np.random.default_rng(seed)
+    idx = np.clip((rng.random(n) ** 1.2 * s).astype(np.int64), 0, s - 1)
+    return (torch.from_numpy(idx).cuda(),
+            torch.from_numpy(rng.random((n, c)).astype(np.float32)).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("presorted", [False, True])
+@pytest.mark.parametrize("s,c,n", [(16384, 3, 786432), (65536, 1, 786432),
+                                   (37, 2, 1000), (300, 3, 257)])
+def test_scatter_acc_matches_plain(s, c, n, presorted):
+    """Kernel S in both modes against scatter_accumulate_plain on the card:
+    each element within the order bound (the most two orders of the
+    additions can differ by), and one launch counted per call."""
+    from texir_code_tpu_torch.ops import scatter_acc as S
+    from texir_code_tpu_torch.scripts.sampler_bwd_variants import (
+        order_bound,
+        order_error,
+    )
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel S has no CPU mode)")
+    idx, g = _scatter_taps(n, s, c, s + c)
+    if presorted:
+        idx, order = torch.sort(idx, stable=True)
+        g = g[order]
+    ref = S.scatter_accumulate_plain(idx, g, s)
+    abs_sum, bound = order_bound(idx, g, s)
+    mode = S.scatter_mode(presorted)
+    before = S.scatter_accumulate_cuda.launches[mode]
+    got = S.scatter_accumulate(idx, g, s, presorted=presorted)
+    torch.cuda.synchronize()
+    assert S.scatter_accumulate_cuda.launches[mode] == before + 1
+    assert got.shape == (s, c) and got.dtype == torch.float32
+    assert order_error(got, ref, abs_sum, bound)[2] <= 1
+
+
+@pytest.mark.cuda
+def test_scatter_acc_unsorted_taps_in_sorted_mode():
+    """The sorted mode gives the right sums for taps in any order (more,
+    shorter runs), and int32 taps are taken as they are."""
+    from texir_code_tpu_torch.ops import scatter_acc as S
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel S has no CPU mode)")
+    idx, g = _scatter_taps(5000, 64, 3, 7)
+    ref = S.scatter_accumulate_plain(idx, g, 64)
+    got = S.scatter_accumulate(idx.to(torch.int32), g, 64, presorted=True)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    with pytest.raises(TypeError):
+        S.scatter_accumulate_cuda(idx, g.double(), 64)
+    with pytest.raises(ValueError):
+        S.scatter_accumulate_cuda(idx, g, 2 ** 31)
+
+
+@pytest.mark.cuda
+def test_take_segsum_backward_on_card():
+    """The sampler's gradient with SEGSUM_BACKWARD on the card (kernel S,
+    sorted mode, 8 launches for the 8 trilinear fetches) against the same
+    gradient on the CPU."""
+    from texir_code_tpu_torch.ops import scatter_acc as S
+    from texir_code_tpu_torch.ops import texture as TT
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel S has no CPU mode)")
+    rng = np.random.default_rng(3)
+    tex = rng.random((64, 64, 3)).astype(np.float32)
+    uv = torch.from_numpy((rng.random((4096, 2)) * 0.3).astype(np.float32))
+    lod = torch.from_numpy((rng.random(4096) * 4).astype(np.float32))
+    grads = {}
+    S.scatter_accumulate_cuda.launches.clear()
+    TT.SEGSUM_BACKWARD = True
+    try:
+        for dev in ("cuda", "cpu"):
+            t = torch.tensor(tex, device=dev, requires_grad=True)
+            out = TT.texture_sample(TT.build_mip_pyramid(t), uv.to(dev),
+                                    lod.to(dev))
+            (out ** 2).sum().backward()
+            grads[dev] = t.grad.cpu()
+    finally:
+        TT.SEGSUM_BACKWARD = False
+    assert S.scatter_accumulate_cuda.launches == {"sorted": 8}
+    rel = (grads["cuda"] - grads["cpu"]).norm() / grads["cpu"].norm()
+    assert rel <= 1e-6

@@ -1,7 +1,8 @@
 """Port vs JAX: the re-render error tester — `eval/renderer.py`
 (`load_optimized_materials`, `EvalMaterialModel` with pixel-chunked
 shading) and `eval/runners.py::MatErrorRunner` — and the port CLI's
-`test` command.
+`test` command in its four stages (the editing, novel-view and
+relighting testers are held to JAX's in tests/test_torch_testers.py).
 
 The data is a small synthetic scan the JAX exporter writes
 (`make_scene(atlas_res=48)`, 2 views, pano 32×64) with random IrT and
@@ -170,11 +171,73 @@ def test_cli_test_error_end_to_end_cpu(tmp_path, capsys):
     assert os.path.isdir(os.path.join(exps, "Error-demo"))
 
 
-@pytest.mark.parametrize("stage", ["Editing", "View", "Relighting"])
-def test_cli_unported_testers_name_roadmap(stage):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue A item 10"):
-        cli.main(["test", "--conf", CONF, "--teststage", stage,
-                  "--device", "cpu"])
+@pytest.fixture(scope="module")
+def cli_scan(tmp_path_factory):
+    """The port CLI's demo scan with an IrT, the scene's seg atlas and a
+    Mat run's atlases: the argv prefix of a `test` command on it."""
+    from texir_code_tpu_torch.data.synthetic import make_scene as t_scene
+
+    root = tmp_path_factory.mktemp("cli_testers")
+    out = str(root / "demo")
+    assert cli.main(["demo", "--out", out, "--views", "2", "--atlas_res",
+                     "48", "--device", "cpu"]) == 0
+    path = os.path.join(out, "mesh", "out1.obj")
+    rng = np.random.default_rng(19)
+    hdrio.write_hdr(path.replace("out1.obj", "irt.hdr"),
+                    rng.uniform(0.5, 2.0, (32, 32, 3)).astype(np.float32),
+                    flip=True)
+    hdrio.write_png(path.replace("out1.obj", "0_seg_gray.png"),
+                    t_scene(atlas_res=48).seg_texture[::-1].astype(np.uint8))
+    exps = str(root / "exps")
+    _write_atlases(os.path.join(exps, "Mat-demo", "2026_01_02_00_00_00",
+                                "plots"), rng)
+    argv = ["test", "--conf", CONF, "--expname", "demo", "--exps_folder",
+            exps, "--device", "cpu",
+            "--set", f"train.path_mesh_open3d={path}",
+            "--set", f"train.pano_img_res=[{PANO[0]}, {PANO[1]}]",
+            "--set", "train.sample_light=[16, 4]"]
+    return argv, exps
+
+
+def _hdr_outputs(exps, stage):
+    (run,) = os.listdir(os.path.join(exps, f"{stage}-demo"))
+    plots = os.path.join(exps, f"{stage}-demo", run, "plots")
+    return {f: hdrio.read_hdr(os.path.join(plots, f))
+            for f in sorted(os.listdir(plots)) if f.endswith(".hdr")}
+
+
+@pytest.mark.parametrize("stage,extra,files", [
+    ("View", ["--num_frames", "2"], ["novel_000.hdr", "novel_001.hdr"]),
+    ("Editing", ["--set", "test.editing.classes=[1, 2]",
+                 "--set", "test.editing.views=[1]",
+                 "--set", "test.editing.frames_per_segment=2",
+                 "--set", "test.editing.albedo_1=[[1.0, 0.0, 0.0], "
+                          "[0.0, 0.0, 1.0]]",
+                 "--set", "test.editing.roughness_2=[0.05, 0.5]"],
+     ["edit_000_v1.hdr", "edit_001_v1.hdr", "edit_002_v1.hdr"]),
+    ("Relighting", ["--relight_mode", "emitter"],
+     ["relit_000.hdr", "relit_001.hdr"]),
+])
+def test_cli_testers_end_to_end_cpu(cli_scan, stage, extra, files):
+    """`test --teststage Editing | View | Relighting --device cpu` through
+    the port's CLI on the demo scan: each writes its frames (6 faces of
+    16² side by side; an editing frame stacks the render over the GT),
+    finite and not black."""
+    argv, exps = cli_scan
+    assert cli.main(argv + ["--teststage", stage] + extra) == 0
+    out = _hdr_outputs(exps, stage)
+    assert sorted(out) == files
+    rows = 32 if stage == "Editing" else 16
+    for name, img in out.items():
+        assert img.shape == (rows, 96, 3), name
+        assert np.isfinite(img).all() and img.max() > 0, name
+
+
+def test_cli_relight_pathtrace_names_roadmap(cli_scan):
+    argv, _ = cli_scan
+    with pytest.raises(SystemExit, match="ROADMAP.md queue A item 5"):
+        cli.main(argv + ["--teststage", "Relighting", "--relight_mode",
+                         "pathtrace"])
 
 
 def test_jax_hdr_reader_reads_port_atlases(data):

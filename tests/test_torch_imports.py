@@ -47,7 +47,8 @@ def test_scan_covers_the_port():
     assert "chip_smoke.py" in names
     for mod in (("ops", "pallas_culled.py"), ("ops", "pallas_fan.py"),
                 ("ops", "chunking.py"), ("eval", "renderer.py"),
-                ("eval", "runners.py")):
+                ("eval", "runners.py"), ("ops", "scatter_acc.py"),
+                ("scripts", "sampler_bwd_variants.py")):
         assert os.path.join("texir_code_tpu_torch", *mod) in names
     assert len(names) > 20
 

@@ -9,14 +9,16 @@ Train (reference trainer/exp_runner.py):
 Test (reference tester/exp_runner.py):
     python -m texir_code_tpu_torch.cli test --conf configs/x.conf \
         --teststage {Editing,View,Relighting,Error} [--expname N] \
-        [--timestamp T] [--exps_folder D] [--set KEY=VAL ...] \
+        [--timestamp T] [--exps_folder D] [--num_frames 60] \
+        [--relight_mode emitter|pathtrace] [--set KEY=VAL ...] \
         [--device cuda|cpu]
 
 Demo (no dataset needed — exports a synthetic scan):
     python -m texir_code_tpu_torch.cli demo --out /tmp/demo [--device cpu]
 
-Stages of the JAX CLI that are not ported yet exit with an error naming
-the ROADMAP.md item that will port them.  The CLI runs float32 matrix
+Stages of the JAX CLI that are not ported yet, and the relighting
+tester's path-traced mode, exit with an error naming the ROADMAP.md item
+that will port them.  The CLI runs float32 matrix
 products and convolutions in full fp32 on the card (TF32 off): the SSIM
 blur of the re-render metrics cancels catastrophically at lower precision.
 """
@@ -44,11 +46,6 @@ _HEADS = (
     "RecMLPSyn",
 )
 _NOT_PORTED.update({h: "queue A item 14 (baseline heads)" for h in _HEADS})
-# testers of the JAX CLI that are not ported yet → their ROADMAP.md item
-_TESTS_NOT_PORTED = {
-    name: "queue A item 10 (eval: the Editing, View and Relighting testers)"
-    for name in ("Editing", "View", "Relighting")
-}
 
 
 def _irrt(conf, args):
@@ -74,16 +71,42 @@ def _mat(conf, args):
 TRAIN_STAGES = {"IrrT": _irrt, "Mat": _mat}
 
 
+def _tester(cls, conf, args):
+    return cls(conf, expname=args.expname, exps_root=args.exps_folder,
+               timestamp=args.timestamp, device=args.device)
+
+
+def _editing(conf, args):
+    from texir_code_tpu_torch.eval.runners import MatEditingRunner
+
+    return _tester(MatEditingRunner, conf, args).run_from_conf()
+
+
+def _view(conf, args):
+    from texir_code_tpu_torch.eval.runners import NovelViewRunner
+
+    return _tester(NovelViewRunner, conf, args).run(num=args.num_frames)
+
+
+def _relighting(conf, args):
+    from texir_code_tpu_torch.eval.runners import (
+        PATHTRACE_NOT_PORTED,
+        RelightingRunner,
+    )
+
+    if args.relight_mode == "pathtrace":
+        raise SystemExit(PATHTRACE_NOT_PORTED)
+    return _tester(RelightingRunner, conf, args).run(mode=args.relight_mode)
+
+
 def _error(conf, args):
     from texir_code_tpu_torch.eval.runners import MatErrorRunner
 
-    return MatErrorRunner(
-        conf, expname=args.expname, exps_root=args.exps_folder,
-        timestamp=args.timestamp, device=args.device,
-    ).run()
+    return _tester(MatErrorRunner, conf, args).run()
 
 
-TEST_STAGES = {"Error": _error}
+TEST_STAGES = {"Editing": _editing, "View": _view,
+               "Relighting": _relighting, "Error": _error}
 
 
 def main(argv=None):
@@ -109,10 +132,12 @@ def main(argv=None):
     pe = sub.add_parser("test")
     pe.add_argument("--conf", required=True)
     pe.add_argument("--expname", default="default")
-    pe.add_argument("--teststage", required=True,
-                    choices=sorted(set(TEST_STAGES) | set(_TESTS_NOT_PORTED)))
+    pe.add_argument("--teststage", required=True, choices=sorted(TEST_STAGES))
     pe.add_argument("--exps_folder", default="exps")
     pe.add_argument("--timestamp", default="latest")
+    pe.add_argument("--num_frames", type=int, default=60)
+    pe.add_argument("--relight_mode", default="emitter",
+                    choices=["emitter", "pathtrace"])
     pe.add_argument("--set", action="append", default=[], metavar="KEY=VAL",
                     dest="overrides", help="conf override (repeatable)")
     pe.add_argument("--device", default="cuda",
@@ -142,13 +167,7 @@ def main(argv=None):
         return 0
 
     if args.command == "test":
-        stage = TEST_STAGES.get(args.teststage)
-        if stage is None:
-            raise SystemExit(
-                f"test stage {args.teststage!r} is not ported to "
-                f"texir_code_tpu_torch yet: ROADMAP.md "
-                f"{_TESTS_NOT_PORTED[args.teststage]}"
-            )
+        stage = TEST_STAGES[args.teststage]
     else:
         stage = TRAIN_STAGES.get(args.trainstage)
         if stage is None:

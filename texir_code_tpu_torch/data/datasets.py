@@ -1,7 +1,7 @@
 """Datasets over the reference's scan-data layout (the Mat stage's input).
 
 The port of the JAX package's `data/datasets.py` for the classes the Mat
-stage reads:
+stage and the testers read:
 
     <root>/mesh/out1.obj (+hdr_texture.hdr, irt.hdr)   mesh + atlases
     <root>/info/aligned.txt                  view ids, one per line
@@ -13,7 +13,8 @@ stage reads:
 
   * ImageCubeDerived — cube-face stacks + per-face MVPs (reference
     datasets/dataset.py:352-549);
-  * ImageCubeSyn — + GT materials + the held-out novel split (:669-893).
+  * ImageCubeSyn — + GT materials + the held-out novel split (:669-893);
+  * ImageCubeNovel — the novel-view tester's dolly trajectory (:552-666).
 
 No OpenCV: the erosion, Sobel gradient and nearest resize are scipy/numpy
 with cv2's border rules (erosion: outside = the maximum value; Sobel:
@@ -32,6 +33,12 @@ import torch
 from scipy import ndimage
 
 from texir_code_tpu_torch.data import hdrio
+
+
+# the novel-view dolly of the JAX package's ImageCubeNovel (its defaults)
+NOVEL_START_OFFSET = np.asarray((-0.2, 0.0, -0.6), np.float32)
+NOVEL_DIRECTION = np.asarray((1.0, 0.0, 0.0), np.float32)
+NOVEL_DISTANCE = 6.0
 
 
 def _root_from_mesh(path_mesh: str) -> str:
@@ -166,3 +173,31 @@ class ImageCubeSyn(ImageCubeDerived):
             self.gt_albedo = np.power(hdrio.read_hdr(a), 2.2)
         if os.path.exists(r):
             self.gt_roughness = hdrio.read_hdr(r)[..., 0:1]
+
+
+class ImageCubeNovel:
+    """Synthesized dolly trajectory (reference :552-666): `num` poses from
+    view `start_index`, moved by NOVEL_START_OFFSET, then along
+    NOVEL_DIRECTION by NOVEL_DISTANCE / `num` a pose."""
+
+    def __init__(self, path_mesh: str, resolution: Tuple[int, int] = (256, 512),
+                 start_index: int = 2, num: int = 60):
+        self.cube_res = int(resolution[1] // 4)
+        base = read_extrinsics(_root_from_mesh(path_mesh))[start_index].copy()
+        base[0:3, 3] += NOVEL_START_OFFSET
+        step = NOVEL_DISTANCE / num
+        self.extrinsics = []
+        for i in range(num):
+            e = base.copy()
+            e[0:3, 3] = e[0:3, 3] + NOVEL_DIRECTION * step * i
+            self.extrinsics.append(e)
+
+    def __len__(self) -> int:
+        return len(self.extrinsics)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        from texir_code_tpu_torch.ops.gbuffer import cube_mvp
+
+        e = self.extrinsics[index]
+        return {"cam_to_world": cube_mvp(e).numpy(),
+                "cam_position": e[0:3, 3]}

@@ -278,3 +278,14 @@ def tonemap_to_ldr(img: np.ndarray) -> np.ndarray:
 def plot_irf(path: str, pred: np.ndarray, gt: np.ndarray) -> None:
     """Stacked pred/gt HDR grid (reference utils/plots.py:27-49)."""
     write_hdr(path, np.concatenate([np.asarray(pred), np.asarray(gt)], axis=0))
+
+
+def plot_mat(path: str, rgb: np.ndarray, gt: np.ndarray) -> None:
+    """Render/GT grid (reference utils/plots.py:69-85): face stacks
+    [F, H, W, C] tiled horizontally, the render above the GT."""
+
+    def tile(x):
+        x = np.asarray(x)
+        return np.concatenate(list(x), axis=1) if x.ndim == 4 else x
+
+    write_hdr(path, np.concatenate([tile(rgb), tile(gt)], axis=0))

@@ -12,11 +12,16 @@ samplers the reference leans on:
     the cube↔pano warps: ``grid_sample``, with the JAX package's rounding
     of nearest taps (floor(x + 0.5)).
 
-Gradients come from autograd: each texel fetch is a gather whose backward
-is a scatter-add (`index_put_` with accumulate) into the flat pyramid, and
-the pyramid's 2×2 means carry them back to the base atlas.  The JAX
-package's sorted segment-sum backward (`take_segsum`) is off by default
-there and is not ported.
+Gradients come from autograd: each texel fetch of the mip sampler is a
+gather from the flat pyramid (`_take_rows`), and the pyramid's 2×2 means
+carry its gradient back to the base atlas.  The gather's backward is, by
+default, autograd's scatter-add (`index_put_` with accumulate).  With the
+module switch `SEGSUM_BACKWARD = True` it is `take_segsum`'s sorted
+segment sum instead, as in the JAX package: the taps are sorted by texel
+and summed by the scatter-accumulate kernel in its sorted mode
+(ops.scatter_acc, `csrc/scatter_acc.cu`, the port of the JAX package's
+Pallas harnesses S1/S2).  Both compute the same per-texel sums, apart from
+the order of the additions.
 
 Texture layout: ``tex[row, col, channel]``; uv=(u, v) maps to
 ``col = u·W - 0.5``, ``row = v·H - 0.5`` (v=0 is row 0).
@@ -27,6 +32,49 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import torch
+
+from texir_code_tpu_torch.ops.scatter_acc import scatter_accumulate
+
+
+class _TakeSegsum(torch.autograd.Function):
+    """flat[idx] whose backward sorts the taps by row and sums them with a
+    sorted segment sum (the JAX package's `take_segsum` VJP)."""
+
+    @staticmethod
+    def forward(ctx, flat, idx):
+        ctx.save_for_backward(idx)
+        ctx.num_rows = flat.shape[0]
+        return flat[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        # stable, as jnp.argsort: a row's taps keep their order
+        idx_s, order = torch.sort(idx, stable=True)
+        shape = g.shape
+        grad = scatter_accumulate(idx_s, g.reshape(shape[0], -1)[order],
+                                  ctx.num_rows, presorted=True)
+        return grad.reshape((ctx.num_rows,) + tuple(shape[1:])), None
+
+
+def take_segsum(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """flat[idx] (rows of flat [S, ...] at the integer taps idx [N]) with a
+    sorted segment-sum backward: the taps are sorted by row (torch.sort,
+    stable) and the cotangent rows summed per row by
+    ops.scatter_acc.scatter_accumulate in its sorted mode — the kernel on
+    the card, index_add_ on the CPU.  idx gets no gradient."""
+    return _TakeSegsum.apply(flat, idx)
+
+
+# module switch: the mip sampler's flat-pyramid fetches use take_segsum's
+# backward when True (set from model code or the harness)
+SEGSUM_BACKWARD = False
+
+
+def _take_rows(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    if SEGSUM_BACKWARD:
+        return take_segsum(flat, idx)
+    return flat[idx]
 
 
 def _gather2d(tex: torch.Tensor, row: torch.Tensor, col: torch.Tensor):
@@ -209,7 +257,8 @@ def _flat_pyramid_fetch(
 
     def fetch(yy, xx):
         idx = off + yy * wi + xx
-        return flat[idx.reshape(-1)].reshape(idx.shape + (flat.shape[-1],))
+        out = _take_rows(flat, idx.reshape(-1))
+        return out.reshape(idx.shape + (flat.shape[-1],))
 
     if rng_xy is not None:
         xi = torch.where(rng_xy[..., 0] < fx[..., 0], xs[1], xs[0])
