@@ -280,12 +280,28 @@ def timed_once(torch, fn):
     return out, start.elapsed_time(end)
 
 
+def exit_waste(torch, need):
+    """The ray-visits an exit of warp granularity (32 consecutive rays of
+    a group walk while one of them needs to) and of block granularity (256
+    rays) walk, each as a share of the needed visits; need [G, rays of a
+    group]."""
+    total = max(1, int(need.sum()))
+    shares = []
+    for width in (32, 256):
+        pad = (-need.shape[1]) % width
+        w = torch.nn.functional.pad(need, (0, pad)).reshape(
+            need.shape[0], -1, width)
+        shares.append(int(w.amax(dim=2).sum()) * width / total)
+    return tuple(shares)
+
+
 def walk_bound(torch, inp, t_final):
     """The least time the card could take for a walk on these inputs:
-    (bound_ms, ops_ms, bytes_ms, visits, tests).  The work this run's data
-    needs: every ray tests each candidate whose bound is below its final t
-    (capped), lb*4 triangles each, at FLOPS_PER_TEST; the bytes read each
-    input once and write each output once."""
+    (bound_ms, ops_ms, bytes_ms, visits, tests, exit waste).  The work this
+    run's data needs: every ray tests each candidate whose bound is below
+    its final t (capped), lb*4 triangles each, at FLOPS_PER_TEST; the bytes
+    read each input once and write each output once.  The exit waste:
+    exit_waste of the needed visits."""
     rays = inp["dx"].numel()
     lb = inp["rows3"].shape[1]
     t_fin = torch.clamp_max(t_final, inp["t_cap"])
@@ -293,6 +309,7 @@ def walk_bound(torch, inp, t_final):
     need = torch.searchsorted(inp["dist"], t_fin.reshape(g, -1).contiguous())
     need = torch.minimum(need, inp["count"][:, None].long())
     visits = int(need.sum())
+    waste = exit_waste(torch, need)
     tests = visits * lb * 4
     ops_ms = tests * FLOPS_PER_TEST / PEAK_FP32_FLOPS * 1e3
     nbytes = sum(
@@ -303,7 +320,7 @@ def walk_bound(torch, inp, t_final):
     if inp.get("seed") is not None:  # t, u, v and, with emit_prim, prim
         nbytes += rays * (16 if inp["emit_prim"] else 12)
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), ops_ms, bytes_ms, visits, tests
+    return max(ops_ms, bytes_ms), ops_ms, bytes_ms, visits, tests, waste
 
 
 def check_walk(torch, label, inp, plain_reps=2, name=None):
@@ -333,17 +350,20 @@ def check_walk(torch, label, inp, plain_reps=2, name=None):
         hp, plain_ms = timed_once(torch, lambda: culled_walk_plain(**inp))
     err, ties, t_bad, prim_bad = compare_hits(hk, hp, inp["emit_prim"])
     kernel_ms = cuda_ms(torch, lambda: culled_walk_cuda(**inp), 20)
-    bound_ms, ops_ms, bytes_ms, visits, tests = walk_bound(torch, inp, hp[0])
+    bound_ms, ops_ms, bytes_ms, visits, tests, waste = walk_bound(
+        torch, inp, hp[0])
     log(f"[kernels] culled_walk {mode} ({label}, lb {lb}): {rays} rays, "
         f"{visits} cluster visits needed ({visits / rays:.2f}/ray, "
-        f"{tests} triangle tests)")
+        f"{tests} triangle tests); an exit by warp walks {waste[0]:.3f}, "
+        f"by 256-ray block {waste[1]:.3f} of the needed visits")
     log(f"[kernels]   max|dt|,|du|,|dv| = {err:.3g}; t mismatches "
         f"{t_bad}; prim mismatches {prim_bad}; ties {ties}; hit "
         f"{float(torch.isfinite(hk[0]).float().mean()):.4f}")
     log(f"[kernels]   kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.2f}  "
         f"bound_ms {bound_ms:.4f} (ops {ops_ms:.4f}, bytes "
-        f"{bytes_ms:.4f}); library_ms null: no single PyTorch call "
-        f"computes this walk")
+        f"{bytes_ms:.4f}); no-FMA issue ceiling {2 * ops_ms:.4f}"
+        f"{' (per-ray origin terms: x47/30)' if inp['per_ray'] else ''}; "
+        f"library_ms null: no single PyTorch call computes this walk")
     if t_bad or ties > 1e-4 * rays:
         raise SystemExit(
             f"culled_walk {mode} disagrees with its plain version: "
@@ -1001,7 +1021,7 @@ def phase_visits(torch, dev, clusters, occ, syn):
     visits = hk.u.reshape(g, -1)[:, 0]
     count = hk.v.reshape(g, -1)[:, 0]
     # the telemetry walk's work is the walk's (the counts are a by-product)
-    bound_ms, ops_ms, bytes_ms, _, _ = walk_bound(torch, inp, hp[0])
+    bound_ms, ops_ms, bytes_ms, _, _, _ = walk_bound(torch, inp, hp[0])
     log(f"[visits] culled_walk {mode} via cast_fans_culled: {g} exit groups, "
         f"visits {float(visits.mean()):.2f} of {float(count.mean()):.2f} "
         f"candidates a group (max {int(visits.max())}); launches {launches}")
@@ -1942,6 +1962,20 @@ def phase_sampler_kernels(torch, dev, syn):
         if launches.get(mode, 0) <= 0:
             raise SystemExit(f"[sampler-kernels] scatter_acc {mode} never "
                              f"launched by the harness")
+    # the sorted mode is deterministic: two runs on the Mat albedo row's
+    # taps give the same bits
+    idx, s = H.view_taps(view["uv"], view["lod_a"], ALBEDO_RES, 3)
+    g = torch.from_numpy(np.random.default_rng(17).random(
+        (idx.shape[0], 3), dtype=np.float32)).to(dev)
+    idx_s, g_s = H.sort_taps(idx, g)
+    runs = [scatter_accumulate_cuda(idx_s, g_s, s, presorted=True)
+            for _ in range(2)]
+    same = torch.equal(runs[0], runs[1])
+    log(f"[sampler-kernels] kernel S sorted, two runs on the Mat albedo "
+        f"row: bit-equal {same}")
+    if not same:
+        raise SystemExit("[sampler-kernels] kernel S sorted is not "
+                         "deterministic")
     albedo = next(r for r in rows if r["label"].startswith("Mat albedo"))
     return {
         "unsorted": _scatter_row("scatter_acc[unsorted]", "acc", S1_REPLACES,

@@ -491,6 +491,151 @@ def test_visit_telemetry_matches_plain(walk, seeded):
     assert (ref[2] >= 1).any()
 
 
+# ---------------------------------------------------------------------------
+# B1's warp-granular walk: warps across rows, empty lists, t_cap, seeds
+# ---------------------------------------------------------------------------
+
+ODD_ROWS, ODD_R, ODD_ER = 18, 100, 3  # 300 rays a group: warps span rows
+ODD_MODES = {
+    "shared_uv": dict(emit_uv=True),
+    "shared_prim": dict(emit_prim=True, t_min=1e-6),
+    "per_ray_uv": dict(per_ray=True, emit_uv=True),
+}
+
+
+def _odd_walk(mode, lb, seed=5, pixels=False):
+    """culled_walk inputs on the card for ODD_ROWS rows of ODD_R rays
+    (exit groups of ODD_ER rows): shared origins differ row by row, per-ray
+    origins ray by ray (with pixels, they repeat over 16 consecutive rays
+    of a group, as a pixel's specular samples do); every fifth group's
+    list is empty."""
+    _, scene, occ = _scene_lb(lb)
+    dev = torch.device("cuda")
+    cs, oc = _to(scene, occ, dev)
+    rng = np.random.default_rng(seed)
+    lo, hi = np.array([0.4, 0.3, 0.4]), np.array([7.6, 2.7, 4.6])
+    shape = (ODD_ROWS, ODD_R)
+    d = rng.standard_normal(shape + (3,))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    dirs = tuple(torch.from_numpy(np.ascontiguousarray(d[..., k])).to(dev)
+                 for k in range(3))
+    kw = dict(ODD_MODES[mode])
+    if kw.get("per_ray"):  # origins scattered about a point of each row
+        o = (rng.uniform(lo, hi, (ODD_ROWS, 1, 3))
+             + rng.uniform(-0.05, 0.05, shape + (3,))).astype(np.float32)
+        if pixels:
+            per_group = o.reshape(-1, ODD_ER * ODD_R, 3)
+            first = np.arange(ODD_ER * ODD_R) // 16 * 16
+            o = np.ascontiguousarray(per_group[:, first].reshape(o.shape))
+    else:
+        o = rng.uniform(lo, hi, (ODD_ROWS, 3)).astype(np.float32)
+    origins = tuple(torch.from_numpy(np.ascontiguousarray(o[..., k])).to(dev)
+                    for k in range(3))
+    args = T.walk_args(cs, origins, dirs, fan_block=ODD_ER,
+                       exit_rows=ODD_ER, occluders=oc, **kw)
+    args["count"] = args["count"].clone()
+    args["count"][::5] = 0
+    return args
+
+
+def _hits_equal(a, b):
+    """t bit-equal; prim, u, v bit-equal but for t-ties (at most 1e-3)."""
+    assert torch.equal(a[0], b[0])
+    tie = (a[1] != b[1]) | (a[2] != b[2]) | (a[3] != b[3])
+    assert float(tie.float().mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [False, True])
+@pytest.mark.parametrize("lb", [4, 8])
+@pytest.mark.parametrize("mode", sorted(ODD_MODES))
+def test_walk_odd_rows_match_plain(mode, lb, cap):
+    """Rows of 100 rays (warps that span two rows take the per-ray origin
+    path), empty candidate lists and, with cap, a t_cap that cuts the
+    lists (the median positive bound): the kernel against the plain walk,
+    both on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the walk kernel has no CPU mode)")
+    args = _odd_walk(mode, lb)
+    if cap:
+        listed = torch.arange(args["dist"].shape[1], device="cuda")
+        bounds = args["dist"][listed[None] < args["count"][:, None]]
+        args["t_cap"] = float(bounds[bounds > 0].median())
+    before = T.culled_walk_cuda.launches[mode]
+    got = T.culled_walk_cuda(**args)
+    torch.cuda.synchronize()
+    assert T.culled_walk_cuda.launches[mode] == before + 1
+    ref = T.culled_walk_plain(**args)
+    _hits_equal(got, ref)
+    empty = (args["count"] == 0).repeat_interleave(ODD_ER)
+    assert torch.isinf(got[0][empty]).all() and (got[1][empty] == -1).all()
+    if cap:  # the cap cut the walks short
+        walked = T.culled_walk_plain(**args, visits=True)[2]
+        full = T.culled_walk_plain(**dict(args, t_cap=1e3), visits=True)[2]
+        assert walked.sum() < full.sum()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lb", [4, 8])
+def test_walk_pixel_origins_match_plain(lb):
+    """Per-ray origins that repeat over 16 rays (each half-warp shares
+    one: its origin terms are formed once) against the plain walk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the walk kernel has no CPU mode)")
+    args = _odd_walk("per_ray_uv", lb, seed=8, pixels=True)
+    got = T.culled_walk_cuda(**args)
+    torch.cuda.synchronize()
+    _hits_equal(got, T.culled_walk_plain(**args))
+    assert torch.isfinite(got[0]).float().mean() > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lb", [4, 8])
+@pytest.mark.parametrize("mode", sorted(ODD_MODES))
+def test_walk_seed_beats_every_candidate(mode, lb):
+    """Seeds at t = 0, which no candidate can beat (its bound is >= 0 and
+    the test t < t_best strict): no ray is ever live, no group visits a
+    cluster, and every output is its seed (prim -1 without emit_prim)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the walk kernel has no CPU mode)")
+    args = _odd_walk(mode, lb, seed=6)
+    shape = args["dx"].shape
+    dev = args["dx"].device
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    seed = (torch.zeros(shape, device=dev),
+            torch.randint(0, 99, shape, generator=gen).to(torch.int32).to(dev),
+            torch.rand(shape, generator=gen).to(dev),
+            torch.rand(shape, generator=gen).to(dev))
+    assert (args["count"] > 0).any()
+    got = T.culled_walk_cuda(**dict(args, seed=seed))
+    ref = T.culled_walk_plain(**dict(args, seed=seed))
+    torch.cuda.synchronize()
+    _hits_equal(got, ref)
+    assert torch.equal(got[0], seed[0])
+    assert torch.equal(got[2], seed[2]) and torch.equal(got[3], seed[3])
+    prim = seed[1] if args["emit_prim"] else torch.full_like(seed[1], -1)
+    assert torch.equal(got[1], prim)
+    visits = T.culled_walk_cuda(**dict(args, seed=seed), visits=True)[2]
+    assert not visits.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lb", [4, 8])
+@pytest.mark.parametrize("mode", sorted(ODD_MODES))
+def test_walk_odd_rows_visits_match_plain(mode, lb):
+    """The visit telemetry with warps across rows and empty lists: the
+    kernel's per-group visits and counts equal the plain walk's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the walk kernel has no CPU mode)")
+    args = _odd_walk(mode, lb, seed=7)
+    got = T.culled_walk_cuda(**args, visits=True)
+    ref = T.culled_walk_plain(**args, visits=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert (got[2] >= 1).any()
+
+
 def _fan_setup():
     from texir_code_tpu_torch.ops.fan_raycast import FanScene
 
@@ -633,20 +778,167 @@ def test_scatter_acc_matches_plain(s, c, n, presorted):
 
 @pytest.mark.cuda
 def test_scatter_acc_unsorted_taps_in_sorted_mode():
-    """The sorted mode gives the right sums for taps in any order (more,
-    shorter runs), and int32 taps are taken as they are."""
+    """The sorted mode's contract is ascending taps (the docstrings say
+    so): taps in any order are sorted first, as take_segsum does, and then
+    give the plain version's sums; int32 taps are taken as they are, and
+    the wrapper checks the type of g and the row count.  Taps out of order
+    in the sorted mode give an undefined result but stay memory-safe."""
     from texir_code_tpu_torch.ops import scatter_acc as S
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernel S has no CPU mode)")
+    assert "ascending" in S.scatter_accumulate.__doc__
+    assert "ascending" in S.scatter_accumulate_cuda.__doc__
     idx, g = _scatter_taps(5000, 64, 3, 7)
     ref = S.scatter_accumulate_plain(idx, g, 64)
-    got = S.scatter_accumulate(idx.to(torch.int32), g, 64, presorted=True)
+    idx_s, order = torch.sort(idx.to(torch.int32), stable=True)
+    got = S.scatter_accumulate(idx_s, g[order], 64, presorted=True)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    junk = S.scatter_accumulate(idx.to(torch.int32), g, 64, presorted=True)
+    torch.cuda.synchronize()
+    assert junk.shape == (64, 3)
     with pytest.raises(TypeError):
         S.scatter_accumulate_cuda(idx, g.double(), 64)
     with pytest.raises(ValueError):
         S.scatter_accumulate_cuda(idx, g, 2 ** 31)
+
+
+def _sorted_case(case, c, dtype):
+    """(idx ascending, g, S) of a named layout of taps."""
+    rng = np.random.default_rng(len(case) + c)
+    if case == "one_row":  # one row takes every tap (one run over blocks)
+        s, idx = 5, np.full(300_000, 3)
+    elif case == "gaps":  # empty rows between runs
+        s = 50_000
+        idx = np.repeat(np.arange(0, s, 7), rng.integers(1, 5, (s + 6) // 7))
+    elif case == "long_runs":  # runs longer than a block, one on its edge
+        s = 9000
+        idx = np.concatenate([np.full(5000, 2), np.arange(3, 2040),
+                              np.full(7000, 2047), np.arange(2048, 8999, 3),
+                              np.full(4100, 8999)])
+    elif case == "ragged":  # S not a multiple of the block's rows
+        s = 2048 * 5 + 77
+        idx = np.sort(rng.integers(0, s, 20_000))
+    else:  # no taps
+        s, idx = 3000, np.zeros(0, np.int64)
+    g = rng.random((len(idx), c), dtype=np.float32)
+    return (torch.from_numpy(np.sort(idx).astype(dtype)).cuda(),
+            torch.from_numpy(g).cuda(), s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("c", [1, 3, 4, 6])
+@pytest.mark.parametrize("case", ["one_row", "gaps", "long_runs", "ragged",
+                                  "empty"])
+def test_scatter_acc_layouts(case, c, dtype):
+    """Both modes on the layouts the sorted mode's blocks must get right:
+    every element within the order bound of the plain version (an
+    element of one tap, or of none, exactly), and the sorted mode
+    bit-equal across two runs."""
+    from texir_code_tpu_torch.ops import scatter_acc as S
+    from texir_code_tpu_torch.scripts.sampler_bwd_variants import (
+        order_bound,
+        order_error,
+    )
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel S has no CPU mode)")
+    idx, g, s = _sorted_case(case, c, dtype)
+    ref = S.scatter_accumulate_plain(idx, g, s)
+    abs_sum, bound = order_bound(idx, g, s)
+    a = S.scatter_accumulate(idx, g, s, presorted=True)
+    b = S.scatter_accumulate(idx, g, s, presorted=True)
+    u = S.scatter_accumulate(idx, g, s)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    for got in (a, u):
+        assert got.shape == (s, c)
+        assert order_error(got, ref, abs_sum, bound)[2] <= 1
+
+
+@pytest.mark.cuda
+def test_scatter_acc_sorted_on_two_streams():
+    """The sorted mode's hand-off scratch is per stream: launches on two
+    streams at once each give the bits of a launch alone."""
+    from texir_code_tpu_torch.ops import scatter_acc as S
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel S has no CPU mode)")
+    idx, g, s = _sorted_case("long_runs", 3, np.int32)
+    ref = S.scatter_accumulate(idx, g, s, presorted=True)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for st in streams:
+        with torch.cuda.stream(st):
+            outs += [S.scatter_accumulate(idx, g, s, presorted=True)
+                     for _ in range(4)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, ref) for o in outs)
+    assert {(idx.device, st.cuda_stream) for st in streams} <= set(S._scratch)
+
+
+@pytest.mark.cuda
+def test_scatter_acc_graph_capture():
+    """Under CUDA graph capture the sorted mode refuses (a replay would
+    reuse its launch's tags); the unsorted mode is captured and its replay
+    gives the plain version's sums within the order bound."""
+    from texir_code_tpu_torch.ops import scatter_acc as S
+    from texir_code_tpu_torch.scripts.sampler_bwd_variants import (
+        order_bound,
+        order_error,
+    )
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel S has no CPU mode)")
+    idx, g, s = _sorted_case("gaps", 3, np.int64)
+    ref = S.scatter_accumulate_plain(idx, g, s)
+    abs_sum, bound = order_bound(idx, g, s)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        S.scatter_accumulate(idx, g, s)  # loads the library before capture
+        graph.capture_begin()
+        try:
+            with pytest.raises(RuntimeError, match="CUDA graph"):
+                S.scatter_accumulate(idx, g, s, presorted=True)
+            out = S.scatter_accumulate(idx, g, s)
+        finally:
+            graph.capture_end()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert order_error(out, ref, abs_sum, bound)[2] <= 1
+
+
+@pytest.mark.cuda
+def test_scatter_acc_mat_pyramid_sorted():
+    """The Mat roughness pyramid (4096², 22,369,621 rows) with one view's
+    worth of taps bunched on the coarse levels: sorted within the order
+    bound, bit-equal across runs, and rows without taps exactly 0."""
+    from texir_code_tpu_torch.ops import scatter_acc as S
+    from texir_code_tpu_torch.scripts.sampler_bwd_variants import (
+        order_bound,
+        order_error,
+    )
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel S has no CPU mode)")
+    s = sum(4 ** k for k in range(13))  # 4096² ... 1²
+    rng = np.random.default_rng(9)
+    idx = np.concatenate([rng.integers(0, s, 600_000),
+                          rng.integers(s - 1365, s, 186_432)])
+    idx, g = np.sort(idx), rng.random((len(idx), 1), dtype=np.float32)
+    idx, g = torch.from_numpy(idx).cuda(), torch.from_numpy(g).cuda()
+    ref = S.scatter_accumulate_plain(idx, g, s)
+    abs_sum, bound = order_bound(idx, g, s)
+    a = S.scatter_accumulate(idx, g, s, presorted=True)
+    b = S.scatter_accumulate(idx, g, s, presorted=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert order_error(a, ref, abs_sum, bound)[2] <= 1
+    assert (a[abs_sum == 0] == 0).all()
 
 
 @pytest.mark.cuda

@@ -190,6 +190,40 @@ def test_take_segsum_forward_and_switch():
         TT.take_segsum = take
 
 
+def test_take_segsum_sorts_int32_keys():
+    """take_segsum's backward sorts the taps as int32 keys (stable), hands
+    kernel S's sorted mode ascending int32 taps with their rows in tap
+    order, and its gradient equals the gather's own backward bit for bit
+    (one tap a row) or within rounding; the harness sorts alike."""
+    seen = []
+    acc = TT.scatter_accumulate
+
+    def record(idx, g, num_rows, presorted=False):
+        seen.append((idx.clone(), g.clone(), presorted))
+        return acc(idx, g, num_rows, presorted)
+
+    rng = np.random.default_rng(41)
+    flat = torch.tensor(rng.random((50, 3), dtype=np.float32),
+                        requires_grad=True)
+    idx = torch.from_numpy(rng.integers(0, 50, 400))
+    w = torch.from_numpy(rng.random((400, 3), dtype=np.float32))
+    TT.scatter_accumulate = record
+    try:
+        (TT.take_segsum(flat, idx) * w).sum().backward()
+    finally:
+        TT.scatter_accumulate = acc
+    ((idx_s, g_s, presorted),) = seen
+    assert presorted and idx_s.dtype == torch.int32
+    assert bool((idx_s[1:] >= idx_s[:-1]).all())
+    order = np.argsort(idx.numpy(), kind="stable")
+    assert torch.equal(idx_s.long(), idx[order])
+    assert torch.equal(g_s, w[order])
+    ref = torch.zeros(50, 3).index_put_((idx,), w, accumulate=True)
+    torch.testing.assert_close(flat.grad, ref, rtol=1e-6, atol=1e-6)
+    h_idx, h_g = H.sort_taps(idx, w)
+    assert torch.equal(h_idx, idx_s) and torch.equal(h_g, g_s)
+
+
 # ---------------------------------------------------------------------------
 # a Mat stage-2 step with the switch on, port vs JAX
 # ---------------------------------------------------------------------------

@@ -585,9 +585,9 @@ def culled_walk_cuda(
     _check("rows3", rows3, torch.float32, (rows3.shape[0], lb, _ROW_PAD), dev)
     _check("prims3", prims3, torch.int32,
            (rows3.shape[0], _PRIM_ROWS, _ROW_PAD), dev)
-    if rows3.data_ptr() % 16:
-        raise ValueError("rows3 must be 16-byte aligned")
-    if lb * (_ROW_PAD + 4) * 4 > _SMEM_LIMIT:
+    # one warp's two ring stages: 12 record floats and two origins' 4 terms
+    # a triangle (csrc: stage_floats)
+    if 2 * 4 * 4 * lb * (12 + 8) > _SMEM_LIMIT:
         raise ValueError(f"cluster size lb={lb} exceeds shared memory")
     if er * r > 65535 * 256:
         raise ValueError(f"exit group of {er}x{r} rays is too large")

@@ -10,7 +10,8 @@ backward of `flat[idx]` and so of every texel fetch of the mip sampler
 harnesses (scripts/sampler_bwd_variants2.py, kernel S1, and
 scripts/sampler_bwd_variants3.py, kernel S2); the port runs it through
 the hand-written kernel `csrc/scatter_acc.cu` on CUDA tensors
-(`scatter_accumulate_cuda`, modes "unsorted" and "sorted") and through
+(`scatter_accumulate_cuda`, modes "unsorted" and "sorted", the latter on
+ascending taps only) and through
 `scatter_accumulate_plain` (zeros + `index_add_` in tap order) on CPU
 tensors.  On a CUDA tensor a kernel that fails to build or launch raises;
 nothing falls back to the plain version.
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+from typing import Dict
 
 import torch
 
@@ -41,14 +43,50 @@ def _scatter_acc_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, p, ll, i, ll, i, p, p]
+        fn.argtypes = [p, i, p, ll, i, i, i, i, p, p, ctypes.c_uint, p]
+        blocks = lib.texir_scatter_acc_blocks
+        blocks.restype = ll
+        blocks.argtypes = [ll, i, i]
     return lib
 
 
 def scatter_mode(presorted: bool) -> str:
     """Name of a kernel mode, as `scatter_accumulate_cuda.launches` counts
-    it: 'sorted' for taps sorted by index, else 'unsorted'."""
+    it: 'sorted' for taps in ascending index order, else 'unsorted'."""
     return "sorted" if presorted else "unsorted"
+
+
+_SORTED_MAX_C = 4    # channels of one sorted-mode launch (csrc: kC <= 4)
+_EPOCH_LIMIT = 1 << 30
+
+
+class _Scratch:
+    """The sorted mode's hand-off between blocks on one stream of one
+    device: `carries` (int64, 4 a block: each a tag and one channel's
+    partial sum), zeroed once and grown as needed; `epoch`, numbered by
+    the host, tells this launch's tags from the last one's.  It is safe
+    only while the launches that share it run in order, so each stream
+    has its own, and no launch is captured in a CUDA graph (a replay
+    would reuse the epoch and could accept an earlier replay's carry)."""
+
+    def __init__(self):
+        self.carries = None
+        self.epoch = 0
+
+    def take(self, blocks: int, dev) -> tuple:
+        if self.carries is None or self.carries.numel() < 4 * blocks:
+            self.carries = torch.zeros(4 * blocks, dtype=torch.int64,
+                                       device=dev)
+            self.epoch = 0
+        self.epoch += 1
+        if self.epoch >= _EPOCH_LIMIT:  # stale tags could match: start over
+            self.carries.zero_()
+            self.epoch = 1
+        return self.carries, self.epoch
+
+
+# one scratch per (device, stream handle)
+_scratch: Dict[tuple, _Scratch] = collections.defaultdict(_Scratch)
 
 
 def scatter_accumulate_cuda(idx: torch.Tensor, g: torch.Tensor,
@@ -56,8 +94,13 @@ def scatter_accumulate_cuda(idx: torch.Tensor, g: torch.Tensor,
                             presorted: bool = False) -> torch.Tensor:
     """Launch `csrc/scatter_acc.cu` on the current stream.
 
-    idx: [N] int32 or int64 on the card (int64 is cast to int32); g: [N, C]
-    float32 on the card.  Adds one to
+    idx: [N] int32 or int64 on the card, taken as it is; g: [N, C] float32
+    on the card.  presorted: idx is in ascending order (the 'sorted'
+    mode's contract: unsorted taps give an undefined result); the output
+    is then written once, without a zero fill (`torch.empty`), in launches
+    of at most 4 channels; it cannot be captured in a CUDA graph (raises
+    while the current stream is capturing, see _Scratch).  Else the
+    'unsorted' mode adds into `torch.zeros`.  Adds one to
     `scatter_accumulate_cuda.launches[scatter_mode(presorted)]` per launch."""
     dev = g.device
     if dev.type != "cuda":
@@ -71,20 +114,37 @@ def scatter_accumulate_cuda(idx: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"idx: expected [{g.shape[0]}] on {dev}, got "
                          f"{tuple(idx.shape)} on {idx.device}")
     if idx.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"idx: expected an integer tensor, got {idx.dtype}")
-    idx32 = idx.to(torch.int32).contiguous()
+        raise TypeError(f"idx: expected int32 or int64, got {idx.dtype}")
+    if presorted and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "scatter_accumulate_cuda(presorted=True) cannot be captured in "
+            "a CUDA graph: its blocks hand partial sums on through tags the "
+            "host numbers per launch, which a replay would reuse")
+    idx = idx.contiguous()
     g = g.contiguous()
     n, c = g.shape
-    out = torch.zeros((num_rows, c), dtype=torch.float32, device=dev)
     lib = _scatter_acc_lib()
+    mode = scatter_mode(presorted)
+    alloc = torch.empty if presorted else torch.zeros
+    out = alloc((num_rows, c), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.texir_scatter_acc(idx32.data_ptr(), g.data_ptr(), n, c,
-                                    num_rows, int(presorted), out.data_ptr(),
-                                    stream)
-    if err != 0:
-        raise RuntimeError(f"scatter_acc launch failed: cudaError {err}")
-    scatter_accumulate_cuda.launches[scatter_mode(presorted)] += 1
+        scratch = _scratch[(dev, stream)]
+        for k in range(0, c, _SORTED_MAX_C) if presorted else (0,):
+            width = min(_SORTED_MAX_C, c - k) if presorted else c
+            carries, epoch = None, 0
+            if presorted:  # a new epoch for each launch on the scratch
+                carries, epoch = scratch.take(
+                    lib.texir_scatter_acc_blocks(n, num_rows, width), dev)
+            err = lib.texir_scatter_acc(
+                idx.data_ptr(), idx.element_size(), g.data_ptr() + 4 * k, n,
+                width, c, num_rows, int(presorted), out.data_ptr() + 4 * k,
+                None if carries is None else carries.data_ptr(), epoch,
+                stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"scatter_acc launch failed: cudaError {err}")
+            scatter_accumulate_cuda.launches[mode] += 1
     return out
 
 
@@ -100,8 +160,10 @@ def scatter_accumulate(idx: torch.Tensor, g: torch.Tensor, num_rows: int,
         idx: [N] integer taps in [0, num_rows).
         g: [N, C] float32 rows.
         num_rows: S, the rows of the output.
-        presorted: the taps are sorted by index (kernel mode 'sorted': one
-            add per run of equal indices); any order gives the same sums.
+        presorted: the taps are in ascending index order (kernel mode
+            'sorted': one deterministic pass that writes each output row
+            once).  On the card this is a contract: taps out of order
+            give an undefined result there; the CPU path takes any order.
     Returns:
         [S, C] float32.
 

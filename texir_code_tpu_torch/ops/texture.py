@@ -49,8 +49,9 @@ class _TakeSegsum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        # stable, as jnp.argsort: a row's taps keep their order
-        idx_s, order = torch.sort(idx, stable=True)
+        # stable, as jnp.argsort: a row's taps keep their order; sorted as
+        # int32 (rows < 2^31): half the key bytes of int64, the same order
+        idx_s, order = torch.sort(idx.to(torch.int32), stable=True)
         shape = g.shape
         grad = scatter_accumulate(idx_s, g.reshape(shape[0], -1)[order],
                                   ctx.num_rows, presorted=True)

@@ -25,7 +25,9 @@ Mat step's two flat pyramids (albedo 2048² × 3: 5,592,405 rows; roughness
 one view's 98,304 pixels (`view_taps`; standalone, the view's uv and LOD
 are uniform, uv in [0, 1)² and LOD in [0, 6), as the JAX harness's
 `mk_uv`).  Each row prints its median ms over `reps` calls on fresh inputs
-— CUDA-event time on the card, host time on the CPU (not a device time) —
+— CUDA-event time on the card (the stream held by a spin kernel while
+the call is enqueued, see `time_ms`), host time on the CPU (not a device
+time) —
 the error against `scatter_accumulate_plain` as a share of the row's
 Σ|g| and of `order_bound` (what a different order of the additions can
 explain), and bound_ms: the bytes the function must move (idx and g read
@@ -78,8 +80,9 @@ def bound_ms(n: int, s: int, c: int) -> float:
 
 
 def sort_taps(idx: torch.Tensor, g: torch.Tensor) -> tuple:
-    """Taps sorted by row (stable), with their rows: take_segsum's sort."""
-    idx_s, order = torch.sort(idx, stable=True)
+    """Taps sorted by row (stable, as int32), with their rows: take_segsum's
+    sort."""
+    idx_s, order = torch.sort(idx.to(torch.int32), stable=True)
     return idx_s, g[order]
 
 
@@ -102,9 +105,16 @@ def run_variant(name: str, idx: torch.Tensor, g: torch.Tensor,
     raise ValueError(f"unknown variant {name!r}")
 
 
+PREROLL_CYCLES = 2_000_000  # ~1 ms of the card's clock
+
+
 def time_ms(fn, inputs: Sequence[tuple]) -> float:
     """Median ms of fn(*inp) over the inputs, after one warm-up call:
-    CUDA-event time on the card, host time (perf_counter) on the CPU."""
+    CUDA-event time on the card, host time (perf_counter) on the CPU.  On
+    the card a spin kernel (torch.cuda._sleep) holds the stream while the
+    host enqueues the call, so the events time the call's kernels back to
+    back and not the host's Python between them (a call of tens of µs on
+    the card takes about as long to enqueue)."""
     cuda = inputs[0][0].device.type == "cuda"
     fn(*inputs[0])
     times = []
@@ -113,6 +123,7 @@ def time_ms(fn, inputs: Sequence[tuple]) -> float:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
+            torch.cuda._sleep(PREROLL_CYCLES)
             start.record()
             fn(*inp)
             end.record()
