@@ -23,7 +23,8 @@ Phases (any failure exits non-zero; nothing is caught):
   4. fan-kernels: the exhaustive stream's four modes against
      fan_stream_plain — the FanScene-only bake's rows (1024 texels × 2048
      spp, emit_uv), the view's G-buffer (t_min 1e-6) and its specular
-     rays (emit_uv and prim) — and B2 against B1 on the bake rows;
+     rays (emit_uv and prim), each with its bound, its no-FMA ceiling
+     and its rays per thread — and B2 against B1 on the bake rows;
   5. visits: B1's debug_emit_visits telemetry on the bake rows through
      cast_fans_culled, against the plain walk;
   6. sampler-kernels: the sampler-backward harness
@@ -870,21 +871,27 @@ def fan_scene(mesh):
     return FanScene.from_flat(fb, triangle_uvs=mesh.triangle_uvs())
 
 
-def check_fan(torch, label, rows, origins, d, t_min, emit_uv, per_ray):
+def check_fan(torch, label, fan, origins, d, t_min, emit_uv, per_ray):
     """fan_stream_cuda against fan_stream_plain on the same inputs: t and
-    prim bit-equal, u and v bit-equal or within 1e-6; CUDA-event times and
-    the bound (every ray tests every real triangle).  Returns the kernel's
-    row of the JSON line (launches filled in later) and its hits."""
+    prim bit-equal, u and v bit-equal or within 1e-6; CUDA-event times,
+    the bound (every ray tests every real triangle) and the kernel's
+    no-FMA issue ceiling (2 × the bound).  Returns the kernel's row of the
+    JSON line (launches filled in later) and its hits."""
     from texir_code_tpu_torch.ops.pallas_fan import (
         fan_stream_cuda,
         fan_stream_plain,
+        launch_plan,
+        sm_count,
         stream_mode,
     )
 
+    dev = d[0].device
+    rows = fan.device_rows(dev)
     args = (rows, origins, *d)
     kw = dict(t_min=t_min, emit_uv=emit_uv, per_ray=per_ray)
     mode = stream_mode(per_ray, emit_uv)
-    hk = fan_stream_cuda(*args, **kw)
+    records = fan.device_records(dev)
+    hk = fan_stream_cuda(*args, **kw, records=records)
     torch.cuda.synchronize()
     hp, plain_ms = timed_once(torch, lambda: fan_stream_plain(*args, **kw))
     t_bad = int((hk[0] != hp[0]).sum() - (torch.isnan(hk[0])
@@ -892,8 +899,10 @@ def check_fan(torch, label, rows, origins, d, t_min, emit_uv, per_ray):
     prim_bad = int((hk[1] != hp[1]).sum())
     duv = max(float((hk[2] - hp[2]).abs().max()),
               float((hk[3] - hp[3]).abs().max()))
-    kernel_ms = cuda_ms(torch, lambda: fan_stream_cuda(*args, **kw), 5)
+    kernel_ms = cuda_ms(torch, lambda: fan_stream_cuda(
+        *args, **kw, records=records), 5)
     rays = d[0].numel()
+    rays_per_thread, threads = launch_plan(rays, sm_count(dev.index))
     # the closest hit needs the real triangles only: padded slots (prim
     # -1, zero normal) never hit
     slots = int((rows[:, 8:12].view(torch.int32) >= 0).sum())
@@ -911,7 +920,9 @@ def check_fan(torch, label, rows, origins, d, t_min, emit_uv, per_ray):
         f"{float(torch.isfinite(hk[0]).float().mean()):.4f}")
     log(f"[fan-kernels]   kernel_ms {kernel_ms:.4f}  plain_ms {plain_ms:.2f}  "
         f"bound_ms {bound_ms:.4f} (ops {ops_ms:.4f}, bytes {bytes_ms:.4f}); "
-        f"library_ms null: no single PyTorch call computes a closest hit")
+        f"no-FMA ceiling {2 * bound_ms:.4f} ms; {rays_per_thread} rays a "
+        f"thread, {threads} threads a block; library_ms null: no single "
+        f"PyTorch call computes a closest hit")
     if t_bad or prim_bad or duv > 1e-6:
         raise SystemExit(f"fan_stream {mode} disagrees with its plain version")
     return dict(
@@ -936,7 +947,6 @@ def phase_fan_kernels(torch, dev, syn, clusters):
     from texir_code_tpu_torch.ops.sampling import generate_dir_soa
 
     fan = fan_scene(syn.mesh)
-    rows = fan.device_rows(dev)
     out = {}
     pts, nrm, ids = bake_texels(syn, 1024)
     p = torch.from_numpy(pts).to(dev)
@@ -945,7 +955,7 @@ def phase_fan_kernels(torch, dev, syn, clusters):
         tuple(n[:, k] for k in range(3)), SPP, mode="uniform",
         row_ids=torch.from_numpy(ids).to(dev), seed=777))
     o = torch.stack([p[:, k] + 1e-2 * n[:, k] for k in range(3)], -1)
-    out["shared_uv"], h2 = check_fan(torch, "FanScene-only bake rows", rows,
+    out["shared_uv"], h2 = check_fan(torch, "FanScene-only bake rows", fan,
                                      o.contiguous(), d, 0.0, True, False)
     # B2 against B1 on the same rows: the same plane-dual test, the culled
     # walk without occluders visits every cluster that can hold the hit
@@ -970,7 +980,7 @@ def phase_fan_kernels(torch, dev, syn, clusters):
     gd = tuple(flat[:, k].reshape(g_rows, width).contiguous()
                for k in range(3))
     go = cam[None].expand(g_rows, 3).contiguous()
-    out["shared_prim"], hg = check_fan(torch, "G-buffer of one view", rows,
+    out["shared_prim"], hg = check_fan(torch, "G-buffer of one view", fan,
                                        go, gd, 1e-6, False, False)
     dm = DeviceMesh.from_mesh(syn.mesh, dev)
     hit = RayHit(*(a.reshape(-1) for a in hg))
@@ -978,7 +988,7 @@ def phase_fan_kernels(torch, dev, syn, clusters):
     so = torch.stack(so, 0).contiguous()
     sd = tuple(a.contiguous() for a in sd)
     for emit_uv in (True, False):
-        row, _ = check_fan(torch, "specular rays of one view", rows, so, sd,
+        row, _ = check_fan(torch, "specular rays of one view", fan, so, sd,
                            0.0, emit_uv, True)
         out["per_ray_uv" if emit_uv else "per_ray_prim"] = row
     return out

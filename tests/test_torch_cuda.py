@@ -683,6 +683,161 @@ def test_fan_stream_matches_plain(per_ray, emit_uv, t_min):
     assert torch.isfinite(ref[0]).float().mean() > 0.99
 
 
+def _fan_equal_on_card(rows, origins, dirs, t_min=0.0, emit_uv=True,
+                       per_ray=False):
+    """fan_stream_cuda (the scene's packed records) against
+    fan_stream_plain on the same CPU inputs: every output bit-equal.
+    Returns the plain hits."""
+    from texir_code_tpu_torch.ops import pallas_fan as F
+
+    kw = dict(t_min=t_min, emit_uv=emit_uv, per_ray=per_ray)
+    ref = F.fan_stream_plain(rows, origins, *dirs, **kw)
+    got = F.fan_stream_cuda(rows.cuda(), origins.cuda(),
+                            *(a.cuda() for a in dirs), **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip("t prim u v".split(), ref, got):
+        assert torch.equal(a, b.cpu()), name
+    return ref
+
+
+def _fan_rows_with_records(fan, n_rec):
+    """The first rows of a FanScene holding n_rec packed records: slots
+    past the n_rec-th real one get a zero normal (no record)."""
+    rows = fan.rows.copy()
+    real = np.nonzero((rows[:, 12:72].reshape(-1, 15)[:, 0:3] != 0).any(1))[0]
+    for slot in real[n_rec:]:
+        rows[slot // 4, 12 + 15 * (slot % 4):15 + 15 * (slot % 4)] = 0.0
+    return torch.from_numpy(rows[: real[n_rec - 1] // 4 + 1].copy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rec", [1, 127, 129, 385])
+@pytest.mark.parametrize("per_ray", [False, True])
+def test_fan_stream_record_counts(n_rec, per_ray):
+    """Scenes of 1 record, one short of a 128-record tile, one past it and
+    one past three tiles (the ring wraps) against the plain stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the stream kernel has no CPU mode)")
+    from texir_code_tpu_torch.ops.fan_raycast import pack_records
+
+    _, fan, o, d = _fan_setup()
+    rows = _fan_rows_with_records(fan, n_rec)
+    assert pack_records(rows)[0].shape[0] == n_rec
+    origins = (torch.from_numpy(np.ascontiguousarray(o.transpose(2, 0, 1)))
+               if per_ray else torch.from_numpy(np.ascontiguousarray(o[:, 0])))
+    dirs = [torch.from_numpy(np.ascontiguousarray(d[..., k]))
+            for k in range(3)]
+    _fan_equal_on_card(rows, origins, dirs, per_ray=per_ray)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [100, 130])
+@pytest.mark.parametrize("per_ray", [False, True])
+@pytest.mark.parametrize("big", [False, True])
+def test_fan_stream_ragged_rows(r, per_ray, big):
+    """Rows of r rays, no multiple of the rays a thread or of a block, so
+    blocks and threads span rows of different origins; `big` launches
+    enough rays for 4 rays a thread (launch_plan), else 2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the stream kernel has no CPU mode)")
+    from texir_code_tpu_torch.ops import pallas_fan as F
+
+    _, fan, _, _ = _fan_setup()
+    sms = F.sm_count(torch.cuda.current_device())
+    t = 2 * sms * 1024 // r + 1 if big else 7
+    assert F.launch_plan(t * r, sms)[0] == (4 if big else 2)
+    rng = np.random.default_rng(r)
+    o = rng.uniform(0.5, 2.5, (t, 3)).astype(np.float32)
+    d = rng.standard_normal((t, r, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    if per_ray:  # each row's origin repeated over its rays, one moved
+        full = np.repeat(o[:, None], r, axis=1)
+        full[1, 3] = np.nextafter(full[1, 3], np.float32(9))
+        origins = torch.from_numpy(np.ascontiguousarray(full.transpose(2, 0, 1)))
+    else:
+        origins = torch.from_numpy(o)
+    dirs = [torch.from_numpy(np.ascontiguousarray(d[..., k]))
+            for k in range(3)]
+    _fan_equal_on_card(torch.from_numpy(fan.rows), origins, dirs,
+                       per_ray=per_ray)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("origins", ["runs", "runs_one_moved", "distinct"])
+@pytest.mark.parametrize("emit_uv", [True, False])
+def test_fan_stream_pixel_origins(origins, emit_uv):
+    """Per-ray origins as the specular trace makes them (each pixel's
+    origin repeated over its 16 rays), with one ray of a run moved by one
+    ulp, and all distinct, against the plain stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the stream kernel has no CPU mode)")
+    _, fan, _, _ = _fan_setup()
+    rng = np.random.default_rng(6)
+    pix = rng.uniform(0.5, 2.5, (8 * 1024 // 16, 3)).astype(np.float32)
+    o = np.repeat(pix, 16, axis=0).reshape(8, 1024, 3)
+    if origins == "runs_one_moved":
+        o[2, 37, 1] = np.nextafter(o[2, 37, 1], np.float32(-9))
+    elif origins == "distinct":
+        o = rng.uniform(0.5, 2.5, (8, 1024, 3)).astype(np.float32)
+    d = rng.standard_normal((8, 1024, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    _fan_equal_on_card(
+        torch.from_numpy(fan.rows),
+        torch.from_numpy(np.ascontiguousarray(o.transpose(2, 0, 1))),
+        [torch.from_numpy(np.ascontiguousarray(d[..., k])) for k in range(3)],
+        emit_uv=emit_uv, per_ray=True)
+
+
+def _rays_at_row(fan, row, n_rays, seed):
+    """Shared-origin rows of n_rays rays, one per real triangle of leaf row
+    `row`: each starts 0.5 off its triangle's centroid along the normal and
+    aims at points inside it (corners from the plane-dual s1, s2, n)."""
+    rng = np.random.default_rng(seed)
+    tri = fan.rows[row, 12:72].reshape(4, 15).astype(np.float64)
+    origins, dirs = [], []
+    for k in range(4):
+        n = tri[k, 0:3]
+        if not n.any():
+            continue
+        n = n / np.linalg.norm(n)
+        e = np.linalg.inv(np.stack([tri[k, 4:7], tri[k, 8:11], n]))
+        p0 = tri[k, 12:15]
+        uv = rng.uniform(0.05, 0.45, (n_rays, 2))
+        pts = p0 + uv[:, :1] * e[:, 0] + uv[:, 1:] * e[:, 1]
+        o = p0 + (e[:, 0] + e[:, 1]) / 3 + 0.5 * n
+        d = pts - o
+        origins.append(o)
+        dirs.append(d / np.linalg.norm(d, axis=1, keepdims=True))
+    d = np.array(dirs, np.float32)
+    return (torch.from_numpy(np.array(origins, np.float32)),
+            [torch.from_numpy(np.ascontiguousarray(d[..., j]))
+             for j in range(3)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit_uv", [True, False])
+@pytest.mark.parametrize("t_min", [0.0, 1e-6])
+def test_fan_stream_duplicate_triangle_tie(emit_uv, t_min):
+    """A FanScene whose row 5 is repeated at its end under other prim ids:
+    rays at its triangles meet both copies at the same t, and the first in
+    row order (the original) wins, on the card as in the plain stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the stream kernel has no CPU mode)")
+    _, fan, _, _ = _fan_setup()
+    rows = torch.from_numpy(fan.rows.copy())
+    dup = rows[5].clone()
+    pids = dup[8:12].view(torch.int32)
+    pids[pids >= 0] += 1_000_000
+    rows = torch.cat([rows, dup[None]]).contiguous()
+    origins, dirs = _rays_at_row(fan, 5, 256, seed=7)
+    ref = _fan_equal_on_card(rows, origins, dirs, t_min=t_min,
+                             emit_uv=emit_uv)
+    own = torch.from_numpy(fan.rows[5, 8:12].copy()).view(torch.int32)
+    prims = ref[1].reshape(-1)
+    assert torch.isin(prims, own[own >= 0]).float().mean() > 0.5
+    assert not (prims >= 1_000_000).any()
+
+
 @pytest.mark.cuda
 def test_fan_scene_only_paths_on_card():
     """The FanScene-only bake batch and Mat forward on the card against

@@ -329,3 +329,37 @@ def test_device_rows_uploaded_once(setup):
     a = s["tfan"].device_rows("cpu")
     assert a is s["tfan"].device_rows(torch.device("cpu"))
     assert a.dtype == torch.float32 and a.shape == s["tfan"].rows.shape
+
+
+def test_device_records_pack_row_columns_once(setup):
+    """The CUDA stream's packed records (FanScene.device_records): each is
+    the 12 tested words of the rows' slot it names, in row order, every
+    slot with a nonzero normal is there and no other; cached per device."""
+    s = setup
+    rows = s["tfan"].rows
+    rec, slots = s["tfan"].device_records("cpu")
+    assert rec is s["tfan"].device_records(torch.device("cpu"))[0]
+    assert rec.dtype == torch.float32 and slots.dtype == torch.int32
+    slots = slots.numpy()
+    assert (np.diff(slots) > 0).all()
+    row, tri = slots // 4, slots % 4
+    base = 12 + 15 * tri
+    want = rows[row[:, None], base[:, None] + np.arange(12)[None]]
+    np.testing.assert_array_equal(rec.numpy(), want)
+    normals = rows[:, 12:72].reshape(-1, 15)[:, 0:3]
+    np.testing.assert_array_equal(np.sort(slots),
+                                  np.nonzero((normals != 0).any(1))[0])
+    assert len(slots) < 4 * len(rows)  # the scene has padded slots
+
+
+def test_fan_launch_plan_fills_the_card():
+    """4 rays a thread in blocks of 256 on the bake's and the specular
+    trace's launches, 2 a thread in smaller blocks on a G-buffer's, and
+    always at least two blocks an SM where the rays allow it."""
+    assert TF.launch_plan(2_097_152, 132) == (4, 256)
+    assert TF.launch_plan(1_572_864, 132) == (4, 256)
+    assert TF.launch_plan(98_304, 132) == (2, 128)
+    assert TF.launch_plan(1000, 132) == (2, 64)
+    for n in (98_304, 270_336, 300_000, 2_097_152):
+        rays, threads = TF.launch_plan(n, 132)
+        assert -(-n // (rays * threads)) >= 264

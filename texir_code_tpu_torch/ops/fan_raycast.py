@@ -11,10 +11,11 @@ s1 = (e2 × n)/|n|², s2 = (n × e1)/|n|², so that for a ray o + t·d:
 `FanScene.from_flat` packs a FlatBVH's leaves into such rows; the culled
 cluster walk (ops.pallas_culled) re-packs them cluster-major, and the
 exhaustive stream (ops.pallas_fan) reads them as they are
-(`FanScene.device_rows`).  The packing is numpy and equal, array for
-array, to the JAX package's.  `closest_hit_block` is the test of a block
-of these triangles in plain PyTorch, the inner loop of both kernels'
-plain versions.
+(`FanScene.device_rows`) and, in its CUDA kernel, as packed triangle
+records (`pack_records`, `FanScene.device_records`).  The row packing is
+numpy and equal, array for array, to the JAX package's.
+`closest_hit_block` is the test of a block of these triangles in plain
+PyTorch, the inner loop of both kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -43,8 +44,11 @@ class FanScene:
 
     rows: np.ndarray  # [L, 72 | 96] float32 (prim ids as float bit patterns)
     diameter: float   # scene AABB diagonal, rounded to float32
-    # the rows as a tensor per device, uploaded once (device_rows)
+    # the rows as a tensor per device, uploaded once (device_rows), and
+    # their packed triangle records (device_records)
     _device_rows: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+    _device_records: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
 
     @property
@@ -61,6 +65,16 @@ class FanScene:
             rows = torch.from_numpy(self.rows).to(dev).contiguous()
             self._device_rows[dev] = rows
         return rows
+
+    def device_records(self, device):
+        """pack_records of the rows on `device`, packed on the first call
+        and cached: the CUDA stream kernel reads them on every call."""
+        dev = torch.device(device)
+        rec = self._device_records.get(dev)
+        if rec is None:
+            rec = pack_records(self.device_rows(dev))
+            self._device_records[dev] = rec
+        return rec
 
     @classmethod
     def from_flat(cls, bvh: FlatBVH, triangle_uvs=None) -> "FanScene":
@@ -118,6 +132,22 @@ class FanScene:
             rows=rows,
             diameter=float(np.float32(np.linalg.norm(hi - lo))),
         )
+
+
+def pack_records(rows: torch.Tensor):
+    """The triangles of FanScene rows as the stream kernel reads them
+    (csrc/fan_stream.cu): (records [K, 12] float32, slots [K] int32).
+
+    A record is a triangle's tested words (n, dist, s1, p0s1, s2, p0s2),
+    rows[row, 12 + 15·tri : 24 + 15·tri], and its slot is row·4 + tri; the
+    records keep row order and leave out every slot whose normal is zero
+    (padding, or a degenerate triangle: n·d = 0, so it never hits)."""
+    n = rows.shape[0]
+    tri = rows[:, _TRI_BASE:_TRI_BASE + 4 * _TRI_STRIDE].reshape(
+        4 * n, _TRI_STRIDE)[:, :12]
+    real = (tri[:, 0:3] != 0).any(dim=1)
+    slots = torch.nonzero(real).reshape(-1).to(torch.int32)
+    return tri[real].contiguous(), slots
 
 
 _DET_EPS = 1e-12

@@ -12,8 +12,9 @@ scene that has a FanScene and no ClusterScene:
 
 On CUDA tensors both launch the hand-written kernel `csrc/fan_stream.cu`
 (`fan_stream_cuda`); on CPU tensors they run `fan_stream_plain`, the same
-arithmetic in plain PyTorch and the kernel's oracle.  The scene's rows go
-to the device once per scene (`FanScene.device_rows`).
+arithmetic in plain PyTorch and the kernel's oracle.  The scene's rows and
+the kernel's packed triangle records go to the device once per scene
+(`FanScene.device_rows`, `FanScene.device_records`).
 
 The file keeps the JAX module's name so each counterpart is easy to find;
 nothing in it is Pallas.
@@ -23,16 +24,19 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 
 import torch
 
 from texir_code_tpu_torch.ops.fan_raycast import (
+    FAN_ROW_WIDTH,
     FAN_ROW_WIDTH_UV,
     _TRI_BASE,
     _TRI_STRIDE,
     _UV_BASE,
     FanScene,
     closest_hit_block,
+    pack_records,
 )
 from texir_code_tpu_torch.ops.pallas_culled import _check
 from texir_code_tpu_torch.ops.raycast import RayHit, Vec3s
@@ -78,8 +82,29 @@ def _fan_stream_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, i, i, p, p, p, p, i, i, f, i, i, p, p, p, p, p]
+        fn.argtypes = [p, p, i, p, i, p, p, p, p, i, i, f, i, i, i, i,
+                       p, p, p, p, p]
     return lib
+
+
+def launch_plan(n_rays: int, sms: int):
+    """(rays per thread, threads per block) of a launch over n_rays rays:
+    4 rays a thread in blocks of 256 where that still gives every SM two
+    blocks, else 2 rays a thread in the largest block (256, 128, 64) that
+    does, so that a small launch (a G-buffer's 98,304 rays) fills the card."""
+    want = 2 * sms
+    if n_rays >= want * 256 * 4:
+        return 4, 256
+    for threads in (256, 128):
+        if n_rays >= want * threads * 2:
+            return 2, threads
+    return 2, 64
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_mode(per_ray: bool, emit_uv: bool) -> str:
@@ -91,9 +116,13 @@ def stream_mode(per_ray: bool, emit_uv: bool) -> str:
 
 
 def fan_stream_cuda(rows, origins, dx, dy, dz, t_min: float = 0.0,
-                    emit_uv: bool = False, per_ray: bool = False):
+                    emit_uv: bool = False, per_ray: bool = False,
+                    records=None):
     """Launch `csrc/fan_stream.cu` on the current stream (see fan_stream).
 
+    records: pack_records(rows) (FanScene.device_records caches them;
+    the kernel reads the hit's prim and uv from `rows` at the records'
+    slots, so they must come from these rows); packed here when None.
     Adds one to `fan_stream_cuda.launches[stream_mode(...)]` per launch."""
     dev = dx.device
     if dev.type != "cuda":
@@ -101,8 +130,9 @@ def fan_stream_cuda(rows, origins, dx, dy, dz, t_min: float = 0.0,
     n_rows, r = dx.shape
     n_leaves, width = rows.shape
     _check("rows", rows, torch.float32, (n_leaves, width), dev)
-    if width % 4 or rows.data_ptr() % 16:
-        raise ValueError("rows must be 16-byte aligned with width % 4 == 0")
+    if width < FAN_ROW_WIDTH:
+        raise ValueError(f"rows must be FanScene rows (width 72 or 96), "
+                         f"got {width}")
     if emit_uv and width < FAN_ROW_WIDTH_UV:
         raise ValueError("emit_uv requires a FanScene built with triangle_uvs")
     if per_ray:
@@ -113,6 +143,13 @@ def fan_stream_cuda(rows, origins, dx, dy, dz, t_min: float = 0.0,
                (n_rows, 3), dev)
     for name, a in (("dx", dx), ("dy", dy), ("dz", dz)):
         _check(name, a, torch.float32, (n_rows, r), dev)
+    rec, slots = pack_records(rows) if records is None else records
+    n_rec = rec.shape[0]
+    _check("records", rec, torch.float32, (n_rec, 12), dev)
+    _check("slots", slots, torch.int32, (n_rec,), dev)
+    if rec.data_ptr() % 16:
+        raise ValueError("records must be 16-byte aligned")
+    rays_per_thread, threads = launch_plan(n_rows * r, sm_count(dev.index))
     shape = (n_rows, r)
     t = torch.empty(shape, dtype=torch.float32, device=dev)
     prim = torch.empty(shape, dtype=torch.int32, device=dev)
@@ -122,10 +159,11 @@ def fan_stream_cuda(rows, origins, dx, dy, dz, t_min: float = 0.0,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.texir_fan_stream(
-            rows.data_ptr(), n_leaves, width, origins.data_ptr(),
-            dx.data_ptr(), dy.data_ptr(), dz.data_ptr(), n_rows, r,
-            float(t_min), int(per_ray), int(emit_uv), t.data_ptr(),
-            prim.data_ptr(), u.data_ptr(), v.data_ptr(), stream,
+            rec.data_ptr(), slots.data_ptr(), n_rec, rows.data_ptr(), width,
+            origins.data_ptr(), dx.data_ptr(), dy.data_ptr(), dz.data_ptr(),
+            n_rows, r, float(t_min), int(per_ray), int(emit_uv),
+            rays_per_thread, threads, t.data_ptr(), prim.data_ptr(),
+            u.data_ptr(), v.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"fan_stream launch failed: cudaError {err}")
@@ -138,7 +176,7 @@ fan_stream_cuda.launches = collections.Counter()
 
 
 def fan_stream(rows, origins, dx, dy, dz, t_min: float = 0.0,
-               emit_uv: bool = False, per_ray: bool = False):
+               emit_uv: bool = False, per_ray: bool = False, records=None):
     """Closest hits of ray rows against every leaf row.
 
     Args:
@@ -148,6 +186,8 @@ def fan_stream(rows, origins, dx, dy, dz, t_min: float = 0.0,
         dx, dy, dz: [T, R] float32 directions.
         t_min: hits need t > t_min.
         emit_uv: (u, v) become the atlas uv of the hit (rows of width 96).
+        records: pack_records(rows), for the CUDA kernel (packed there
+            when None).
     Returns:
         (t, prim, u, v), each [T, R]: t = +inf and prim = -1 on miss.
 
@@ -155,7 +195,7 @@ def fan_stream(rows, origins, dx, dy, dz, t_min: float = 0.0,
     CPU tensors it runs fan_stream_plain."""
     args = (rows, origins, dx, dy, dz, t_min, emit_uv, per_ray)
     if dx.device.type == "cuda":
-        return fan_stream_cuda(*args)
+        return fan_stream_cuda(*args, records=records)
     if dx.device.type == "cpu":
         return fan_stream_plain(*args)
     raise ValueError(f"fan_stream: unsupported device {dx.device}")
@@ -168,10 +208,11 @@ def _stream(scene: FanScene, o_pack, dirs: Vec3s, t_min: float,
         raise ValueError(f"rays per row must be a multiple of 128, got {r}")
     if emit_uv and scene.rows.shape[1] < FAN_ROW_WIDTH_UV:
         raise ValueError("emit_uv requires a FanScene built with triangle_uvs")
-    rows = scene.device_rows(dirs[0].device)
+    dev = dirs[0].device
     t, prim, u, v = fan_stream(
-        rows, o_pack, *(a.contiguous() for a in dirs), t_min=t_min,
-        emit_uv=emit_uv, per_ray=per_ray)
+        scene.device_rows(dev), o_pack, *(a.contiguous() for a in dirs),
+        t_min=t_min, emit_uv=emit_uv, per_ray=per_ray,
+        records=scene.device_records(dev) if dev.type == "cuda" else None)
     return RayHit(t=t, prim=prim, u=u, v=v)
 
 

@@ -1,8 +1,10 @@
-"""A/B of kernels B1 (csrc/culled_walk.cu) and S (csrc/scatter_acc.cu)
-against other builds of their sources, on one card in one process.
+"""A/B of kernels B1 (csrc/culled_walk.cu), B2/B3 (csrc/fan_stream.cu)
+and S (csrc/scatter_acc.cu) against other builds of their sources, on one
+card in one process.
 
     python -m texir_code_tpu_torch.scripts.kernel_ab \\
-        [--walk CU [CU ...]] [--scatter CU [CU ...]] [--reps 10]
+        [--walk CU [CU ...]] [--fan CU [CU ...]] [--fan-same CU [CU ...]] \\
+        [--scatter CU [CU ...]] [--reps 10]
 
 Run it from the root of a checkout: its rows are chip_smoke.py's.  Keep
 the other sources where git does not track them, e.g.
@@ -19,6 +21,25 @@ G-buffer and specular rows of phase 4, the building's rows of phase 7).
 Its outputs must be bit-equal to the checkout's.  Each build is timed with
 CUDA events over `reps` launches, in turns: this, the others, the others
 reversed, this.  Prints `[walk-ab] <row>: this [ms, ms]; <file> [ms, ms]`.
+
+--fan: sources of B2/B3 with the earlier C interface (the rows read as
+they are, one thread a ray)
+
+    int texir_fan_stream(const float* rows, int n_rows, int width,
+                         const float* origins, const float* dx,
+                         const float* dy, const float* dz, int t_rows,
+                         int r, float t_min, int per_ray, int emit_uv,
+                         float* t_out, int* prim_out, float* u_out,
+                         float* v_out, void* stream)
+
+each timed beside the checkout's fan_stream_cuda (with the scene's packed
+records, as the main path calls it) on chip_smoke.py's four [fan-kernels]
+rows (phase 4: the FanScene-only bake rows, one view's G-buffer and its
+specular rays in both uv modes), with CUDA events over `reps` launches in
+turns as above.  Every output must be bit-equal to the checkout's.  Prints
+`[fan-ab] <row>: this [ms, ms]; <file> [ms, ms]`.  --fan-same: sources
+with the checkout's C interface, run in place of its kernel through
+fan_stream_cuda, likewise.
 
 --scatter: sources of kernel S with the earlier C interface
 
@@ -107,6 +128,91 @@ def walk_rows() -> list:
     finally:
         C.check_walk = check
     return rows
+
+
+def fan_rows() -> list:
+    """(label, fan_stream_cuda kwargs) of chip_smoke.py's four
+    [fan-kernels] rows, made by its phase 4 (its checks against the plain
+    stream are left out)."""
+    import chip_smoke as C
+    from texir_code_tpu_torch.ops.pallas_fan import fan_stream_cuda, stream_mode
+
+    rows = []
+
+    def record(torch_, label, fan, origins, d, t_min, emit_uv, per_ray):
+        dev = d[0].device
+        inp = dict(rows=fan.device_rows(dev), origins=origins, dx=d[0],
+                   dy=d[1], dz=d[2], t_min=t_min, emit_uv=emit_uv,
+                   per_ray=per_ray, records=fan.device_records(dev))
+        rows.append((f"{stream_mode(per_ray, emit_uv)} ({label})", inp))
+        return {}, fan_stream_cuda(**inp)
+
+    check = C.check_fan
+    C.check_fan = record
+    try:
+        dev = torch.device("cuda", 0)
+        syn, clusters, _ = C.bench_scene(dev)
+        C.phase_fan_kernels(torch, dev, syn, clusters)
+    finally:
+        C.check_fan = check
+    return rows
+
+
+def _earlier_fan(lib, rows, origins, dx, dy, dz, t_min, emit_uv, per_ray,
+                 records):
+    """One launch of a B2/B3 build with the earlier C interface."""
+    del records  # that kernel reads the rows as they are
+    out = [torch.empty(dx.shape, dtype=dt, device=dx.device)
+           for dt in (torch.float32, torch.int32, torch.float32, torch.float32)]
+    err = lib.texir_fan_stream(
+        rows.data_ptr(), rows.shape[0], rows.shape[1], origins.data_ptr(),
+        dx.data_ptr(), dy.data_ptr(), dz.data_ptr(), dx.shape[0], dx.shape[1],
+        float(t_min), int(per_ray), int(emit_uv),
+        *(a.data_ptr() for a in out), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fan_stream launch failed: cudaError {err}")
+    return tuple(out)
+
+
+def fan_ab(earlier: List[str], same: List[str], reps: int) -> None:
+    from chip_smoke import cuda_ms
+    from texir_code_tpu_torch.ops import pallas_fan as PF
+
+    this = PF._fan_stream_lib()
+    calls = {}
+    for name, lib in {"this": this,
+                      **build_sources(same, "fan_stream_same")}.items():
+        lib.texir_fan_stream.restype = this.texir_fan_stream.restype
+        lib.texir_fan_stream.argtypes = this.texir_fan_stream.argtypes
+
+        def call(inp, lib=lib):
+            # fan_stream_cuda loads its library through this cache
+            cuda_build._loaded["fan_stream"] = lib
+            return PF.fan_stream_cuda(**inp)
+        calls[name] = call
+    for name, lib in build_sources(earlier, "fan_stream").items():
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.texir_fan_stream.restype = ctypes.c_int
+        lib.texir_fan_stream.argtypes = [p, i, i, p, p, p, p, i, i, f, i, i,
+                                         p, p, p, p, p]
+        calls[name] = lambda inp, lib=lib: _earlier_fan(lib, **inp)
+    order = turns([k for k in calls if k != "this"])
+    try:
+        for label, inp in fan_rows():
+            out, ms = {}, {k: [] for k in calls}
+            for which in order:
+                out[which] = calls[which](inp)
+                ms[which].append(cuda_ms(
+                    torch, lambda: calls[which](inp), reps))
+            differ = [k for k in calls if not all(
+                torch.equal(a, b) for a, b in zip(out["this"], out[k]))]
+            print(f"[fan-ab] {label}: " + "; ".join(
+                f"{k} {[round(x, 4) for x in v]} ms" for k, v in ms.items())
+                + f"; not bit-equal to this: {differ}", flush=True)
+            if differ:
+                raise SystemExit(f"[fan-ab] {label}: the kernels disagree")
+    finally:
+        cuda_build._loaded["fan_stream"] = this
 
 
 def walk_ab(paths: List[str], reps: int) -> None:
@@ -205,6 +311,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--walk", nargs="+", default=[], metavar="CU",
                     help="sources of kernel B1 to time beside the checkout's")
+    ap.add_argument("--fan", nargs="+", default=[], metavar="CU",
+                    help="sources of kernels B2/B3 (the earlier C interface)")
+    ap.add_argument("--fan-same", nargs="+", default=[], metavar="CU",
+                    help="sources of kernels B2/B3 (the checkout's C "
+                         "interface)")
     ap.add_argument("--scatter", nargs="+", default=[], metavar="CU",
                     help="sources of kernel S (the earlier C interface)")
     ap.add_argument("--reps", type=int, default=10)
@@ -216,6 +327,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.walk:
         walk_ab(args.walk, args.reps)
+    if args.fan or args.fan_same:
+        fan_ab(args.fan, args.fan_same, args.reps)
     if args.scatter:
         scatter_ab(args.scatter, args.reps)
     return 0
