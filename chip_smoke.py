@@ -9,7 +9,8 @@ multi-room building (make_building_scene(atlas_res=256, subdiv=28), 104,076
 triangles): export the scan, bake its IrrT, train its materials; on the
 apartment also the FanScene-only configuration (no ClusterScene: every ray
 against every leaf row, kernels B2/B3), the Mat step with the sampler's
-segment-sum backward (kernel S) and the four testers.
+segment-sum backward (kernel S), the four testers, the BVH traversal and
+the quality run's path (the material-rendered export, IrrT, MatSyn).
 Phases (any failure exits non-zero; nothing is caught):
   1. device: torch's view of the card, and nvidia-smi's name and power limit;
   2. build: every CUDA kernel of the port from csrc/ (culled_walk,
@@ -88,11 +89,25 @@ Phases (any failure exits non-zero; nothing is caught):
  26. relit-reference: one view's relit render on the card against the CPU
      at pano 64×128, sample_light [32, 16];
  27. building-reference: the card's two-pass + proxy bake_batch against
-     the CPU's on 64 building texels.
+     the CPU's on 64 building texels;
+ 28. bvh (after 7): the BVH traversal (ops/raycast.py::cast_rays_soa,
+     plain PyTorch) on view 0's 131,072 pano rays of the quality run's
+     5-view ring, against B1 shared_prim on the same rays and against the
+     CPU traversal on 8,192 of them; ms a cast, iterations, launches, host
+     syncs;
+ 29. syn-export (after 17): export_reference_layout(gt_render="material")
+     at 5 views 256×512, gt_spp 512, irt_spp 1024 (view004 held out as
+     the novel view), B1 shared_uv (the GT IrT bake) and per_ray_prim (the
+     photos' specular rays) required; 256 pixels of view 0 rendered on
+     the card and on the CPU with the same draws;
+ 30. matsyn: IrrT at --irt_res 512 and `train --trainstage MatSyn
+     --max_epochs 1` through the port's CLI on that export (B1
+     shared_prim and per_ray_uv required): stage seconds, material and
+     novel-view metrics.
 Kernel launch counts are zeroed just before each main-path run (5, 6, 9,
 10, 11, 12, 13, each tester of 14, the switch-on steps of 17, each run of
-19, 20, 21) and read just after; every kernel mode of that run must have
-run.  Then a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
+19, 20, 21, 29, the MatSyn stage of 30) and read just after; every kernel
+mode of that run must have run.  Then a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
 line.  Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
 """
@@ -151,6 +166,20 @@ S1_REPLACES = "scripts/sampler_bwd_variants2.py:110"
 S2_REPLACES = "scripts/sampler_bwd_variants3.py:52"
 SEGSUM_STEPS = 8
 RELIT_REF_LIGHT = (32, 16)  # the relit card-vs-CPU check (diffuse, specular)
+# the quality run's export (scripts/quality_run.py): 5 views, GT photos
+# rendered through the material model
+QUALITY_VIEWS = 5
+GT_SPP = 512
+IRT_SPP = 1024
+SYN_IRT_RES = 512
+BVH_BAND = (128, 144)  # pano rows of view 0 traced again on the CPU
+# [bvh] vs B1 on view 0's rays, through edges and vertices: at most twice
+# the deterministic readings (980 ties and leaks, 491 leaks through the
+# walk, 4 through the traversal)
+BVH_EDGE_RAYS_MAX = 1960
+BVH_WALK_LEAKS_MAX = 982
+BVH_LEAKS_MAX = 8
+SYN_BAND = (65_408, 65_664)  # raster pixels of view 0 rendered on the CPU
 
 
 def log(msg=""):
@@ -2260,6 +2289,261 @@ def phase_relit_reference(torch, dev, syn):
         raise SystemExit("the relit render on the card disagrees with the CPU")
 
 
+def phase_bvh(torch, dev, syn, clusters):
+    """The BVH traversal (ops/raycast.py::cast_rays_soa, plain PyTorch) on
+    one view's pano rays: against B1 shared_prim on the same rays (prim
+    equal and t within 1e-4 relative, except on rays through a triangle
+    edge or vertex, where the two formulas may pick either triangle at
+    the same t (a tie) or neither (a leak), at most twice as often as the
+    deterministic readings) and against the CPU traversal
+    on a band of them (prim equal, t/u/v within 1e-6 relative); its ms per
+    cast, iterations, launches and host syncs.  View 0's camera sits on
+    the wall grid's lines, so its pole rows and the columns in the grid's
+    planes run through edges and vertices."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from texir_code_tpu_torch.data.export import ROW_WIDTH, pano_dirs
+    from texir_code_tpu_torch.geometry.bvh import build_bvh
+    from texir_code_tpu_torch.ops.pallas_culled import cast_fans_culled
+    from texir_code_tpu_torch.ops.raycast import DeviceBVH, cast_rays_soa
+
+    t0 = time.time()
+    fb = build_bvh(syn.mesh.vertices, syn.mesh.faces)
+    bvh = DeviceBVH.from_flat(fb, dev)
+    log(f"[bvh] BVH of {syn.mesh.num_faces} triangles: {fb.num_nodes} nodes, "
+        f"built and uploaded in {time.time() - t0:.2f} s")
+    cam = syn.camera_positions(QUALITY_VIEWS)[0]
+    d = torch.from_numpy(pano_dirs(*PANO).reshape(-1, 3)).to(dev)
+    n = d.shape[0]
+    o = tuple(torch.full((n,), float(cam[k]), device=dev) for k in range(3))
+    dd = tuple(d[:, k].contiguous() for k in range(3))
+
+    def cast():
+        return cast_rays_soa(bvh, o, dd, t_min=1e-5)
+
+    hit = cast()
+    stats = dict(cast_rays_soa.stats)
+    ms = cuda_ms(torch, cast, 3)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cast()
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cast()
+        torch.cuda.synchronize()
+    kern, launches = profile_kernels(prof)
+    busy = sum(kern.values())
+    log(f"[bvh] cast_rays_soa on {n} pano rays of view 0: {ms:.3f} ms a cast "
+        f"(CUDA events, 3 casts), wall {wall_ms:.2f} ms; "
+        f"{stats['iterations']} iterations, {stats['syncs']} host syncs, "
+        f"{stats['compactions']} compactions; {launches} kernel launches, "
+        f"{busy:.2f} ms on the card, idle share "
+        + (f"{max(0.0, 1 - busy / wall_ms):.3f}" if busy else "not measured"))
+
+    # B1 shared_prim on the same rays, as the radiance exporter traces them
+    rows = n // ROW_WIDTH
+    camt = torch.as_tensor(np.asarray(cam, np.float32), device=dev)
+    walk = cast_fans_culled(
+        clusters, tuple(camt[k].expand(rows).contiguous() for k in range(3)),
+        tuple(a.reshape(rows, ROW_WIDTH) for a in dd), t_min=1e-5,
+        emit_prim=True)
+    ta, pa = hit.t.cpu().numpy(), hit.prim.cpu().numpy()
+    tb, pb = (walk.t.reshape(-1).cpu().numpy(),
+              walk.prim.reshape(-1).cpu().numpy())
+
+    def edge(u, v):  # barycentric distance of a hit to its triangle's edges
+        u, v = u.reshape(-1).cpu().numpy(), v.reshape(-1).cpu().numpy()
+        return np.minimum(np.minimum(u, v), 1.0 - u - v)
+
+    both = np.isfinite(ta) & np.isfinite(tb)
+    rel = np.zeros(n)
+    rel[both] = np.abs(ta[both] - tb[both]) / tb[both]
+    leak = np.isfinite(ta) != np.isfinite(tb)
+    tie = both & (pa != pb) & (rel <= 1e-4)
+    bad = both & (pa != pb) & (rel > 1e-4)
+    near = np.where(np.isfinite(ta), edge(hit.u, hit.v),
+                    edge(walk.u, walk.v))
+    same = both & (pa == pb)
+    rows_off = np.unique(np.flatnonzero(leak | tie) // PANO[1])
+    log(f"[bvh]   vs B1 shared_prim: prim differs on {int((pa != pb).sum())} "
+        f"of {n} rays: {int(tie.sum())} exact-t ties, {int(leak.sum())} "
+        f"leaks ({int((leak & np.isfinite(ta)).sum())} hit by the BVH "
+        f"only), {int(bad.sum())} mismatches; every tie or leak within "
+        f"{float(near[leak | tie].max(initial=0.0)):.3g} (barycentric) of "
+        f"a triangle edge, as {float((near[np.isfinite(ta)] <= 1e-5).mean()):.4f} "
+        f"of the BVH's hits; pano rows with one: {rows_off.size} "
+        f"(rows 0 and {PANO[0] - 1}: "
+        f"{int(((leak | tie).reshape(PANO)[[0, -1]]).sum())}); t max rel "
+        f"diff {float(rel[same].max()):.3g} where prim agrees")
+    # the plane-dual walk and the Möller–Trumbore traversal round apart at
+    # a shared edge or vertex: there one may take either triangle, or
+    # neither (a leak); nowhere else may they differ, and no more often
+    # than the readings allow
+    if bad.any() or (near[leak | tie] > 1e-5).any():
+        raise SystemExit("[bvh] the traversal disagrees with B1 off the "
+                         "triangles' edges")
+    walk_leaks = int((leak & np.isfinite(ta)).sum())
+    if (int((leak | tie).sum()) > BVH_EDGE_RAYS_MAX
+            or walk_leaks > BVH_WALK_LEAKS_MAX
+            or int(leak.sum()) - walk_leaks > BVH_LEAKS_MAX):
+        raise SystemExit("[bvh] more ties or leaks at the triangles' edges "
+                         "than the deterministic readings allow")
+    if float(rel[same].max()) > 1e-4:
+        raise SystemExit("[bvh] t differs from B1's beyond 1e-4 relative")
+
+    # the CPU traversal on a band of the same rays
+    sl = slice(BVH_BAND[0] * PANO[1], BVH_BAND[1] * PANO[1])
+    ref = cast_rays_soa(DeviceBVH.from_flat(fb, "cpu"),
+                        tuple(a[sl].cpu() for a in o),
+                        tuple(a[sl].cpu() for a in dd), t_min=1e-5)
+    if not torch.equal(hit.prim[sl].cpu(), ref.prim):
+        raise SystemExit("[bvh] the card's prims differ from the CPU's")
+    errs = []
+    for f in ("t", "u", "v"):
+        a = getattr(hit, f)[sl].cpu().numpy()
+        b = getattr(ref, f).numpy()
+        fin = np.isfinite(b)
+        if not np.array_equal(np.isfinite(a), fin):
+            raise SystemExit(f"[bvh] the card's {f} misses differ")
+        err = np.abs(a[fin] - b[fin]) / np.maximum(np.abs(b[fin]), 1.0)
+        errs.append(float(err.max()) if err.size else 0.0)
+    log(f"[bvh]   vs the CPU traversal on {sl.stop - sl.start} rays: prim "
+        f"equal, t/u/v max rel diff {max(errs):.3g}")
+    if max(errs) > 1e-6:
+        raise SystemExit("[bvh] the card's t/u/v differ from the CPU's")
+    return dict(ms=ms, launches=launches, **stats)
+
+
+def phase_syn_export(torch, syn, tmp):
+    """The quality run's export: export_reference_layout(gt_render=
+    "material") at 5 views 256×512, gt_spp 512, irt_spp 1024, with B1
+    launched in the GT IrT bake (shared_uv) and the photos' specular rays
+    (per_ray_prim: the exporter fetches radiance from prim + barycentrics,
+    as the JAX exporter does); then a band of view 0 rendered on the card
+    and on the CPU with the same draws, relative L2 1e-4."""
+    from texir_code_tpu_torch.data import hdrio
+    from texir_code_tpu_torch.data.export import (
+        export_reference_layout,
+        render_pano_material,
+    )
+    from texir_code_tpu_torch.geometry.bvh import build_bvh
+    from texir_code_tpu_torch.models.tbl import build_tbl_from_flat
+    from texir_code_tpu_torch.ops.fan_raycast import FanScene
+    from texir_code_tpu_torch.ops.pallas_culled import (
+        ClusterScene,
+        culled_walk_cuda,
+    )
+
+    out = os.path.join(tmp, "syn")
+    culled_walk_cuda.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    path_mesh = export_reference_layout(
+        syn, out, n_views=QUALITY_VIEWS, pano_res=PANO, gt_render="material",
+        gt_spp=GT_SPP, irt_spp=IRT_SPP, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(culled_walk_cuda.launches)
+    tm = export_reference_layout.timings
+    with open(os.path.join(out, "info", "novel.txt"), "w") as f:
+        f.write(f"view{QUALITY_VIEWS - 1:03d}\n")
+    photos = [hdrio.read_hdr(os.path.join(out, "hdr", f"view{i:03d}",
+                                          "ccm.hdr"))
+              for i in range(QUALITY_VIEWS)]
+    log(f"[syn-export] material export: {QUALITY_VIEWS} views at pano "
+        f"{PANO[0]}x{PANO[1]}, gt_spp {GT_SPP}, irt_spp {IRT_SPP}: "
+        f"{dt:.2f} s; GT IrT bake {tm['bake_s']:.2f} s; views "
+        f"{', '.join(f'{t:.2f}' for t in tm['views_s'])} s; culled_walk "
+        f"launches {launches}; photo means "
+        f"{[round(float(p.mean()), 5) for p in photos]}")
+    _need_modes("syn-export", launches, ("shared_uv", "per_ray_prim"))
+    if not all(p.shape == PANO + (3,) and np.isfinite(p).all()
+               and p.max() > 0 for p in photos):
+        raise SystemExit("[syn-export] a photo is malformed, non-finite or "
+                         "black")
+
+    # card vs CPU on a band of view 0, the same draws (seed 0)
+    irt = hdrio.read_hdr(path_mesh.replace("out1.obj", "gt_irt.hdr"),
+                         flip=True)
+    fb = build_bvh(syn.mesh.vertices, syn.mesh.faces)
+    fan = FanScene.from_flat(fb, triangle_uvs=syn.mesh.triangle_uvs())
+    cam = syn.camera_positions(QUALITY_VIEWS)[0]
+    bands = {}
+    for d in ("cuda", "cpu"):
+        tbl = build_tbl_from_flat(fb, syn.mesh, syn.hdr_texture, device=d)
+        cl = ClusterScene.from_fan(fan, lb=4, dense=True, device=d)
+        t0 = time.time()
+        bands[d] = render_pano_material(
+            syn.mesh, tbl, irt, syn.gt_albedo, syn.gt_roughness, cam, PANO,
+            spp=GT_SPP, seed=0, cluster_scene=cl, pixels=SYN_BAND)
+        bands[d + "_s"] = time.time() - t0
+    a, b = bands["cuda"], bands["cpu"]
+    rel = float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+    log(f"[syn-export]   view 0 pixels {SYN_BAND[0]}..{SYN_BAND[1] - 1} "
+        f"({a.shape[0]} pixels x {GT_SPP} spp): card "
+        f"{bands['cuda_s']:.2f} s, CPU {bands['cpu_s']:.2f} s; rel L2 "
+        f"{rel:.3g}, max |d| {float(np.abs(a - b).max()):.3g}")
+    if not rel <= 1e-4:
+        raise SystemExit("[syn-export] the card's render differs from the "
+                         "CPU's")
+    return path_mesh, launches, tm
+
+
+def phase_matsyn(torch, path_mesh, tmp):
+    """IrrT (--irt_res 512, the quality recipe) and `train --trainstage
+    MatSyn --max_epochs 1` through the port's CLI on the material export:
+    the stage seconds, the material and novel-view metrics, B1's modes."""
+    import glob
+
+    from texir_code_tpu_torch import cli
+    from texir_code_tpu_torch.ops.pallas_culled import culled_walk_cuda
+
+    exps = os.path.join(tmp, "syn-exps")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    cli.main(["train", "--conf", os.path.join(here, "configs",
+                                              "irt_synthetic.conf"),
+              "--trainstage", "IrrT", "--irt_res", str(SYN_IRT_RES),
+              "--exps_folder", exps,
+              "--set", f"train.path_mesh_open3d={path_mesh}"])
+    torch.cuda.synchronize()
+    log(f"[matsyn] IrrT via cli at --irt_res {SYN_IRT_RES}: "
+        f"{time.time() - t0:.2f} s with set-up")
+    conf, sets = _mat_conf(path_mesh, PANO)
+    culled_walk_cuda.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cli.main(["train", "--conf", conf, "--trainstage", "MatSyn",
+              "--max_epochs", "1", "--exps_folder", exps] + sets)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(culled_walk_cuda.launches)
+    (tpath,) = glob.glob(os.path.join(exps, "Mat-default", "*",
+                                      "timings.json"))
+    with open(tpath) as f:
+        tm = json.load(f)
+    mm, nm, m = tm["material_metrics"], tm["novel_metrics"], tm["metrics"]
+    steps = sum(tm[f"substage{k}"]["steps"] for k in range(3))
+    log(f"[matsyn] MatSyn via cli, --max_epochs 1: {dt:.2f} s with set-up "
+        f"({steps} steps on {QUALITY_VIEWS - 1} training views; set-up "
+        f"{tm['setup_s']:.2f} s, masks {tm['masks_s']:.2f} s, re-render "
+        f"{tm['render_calculate_s']:.2f} s, material eval "
+        f"{tm['evaluate_materials_s']:.2f} s, novel eval "
+        f"{tm['evaluate_novel_views_s']:.2f} s); culled_walk launches "
+        f"{launches}")
+    log(f"[matsyn]   re-render psnr {m['psnr']:.4f}; novel psnr "
+        f"{nm['novel_psnr']:.4f}; mapped albedo psnr "
+        f"{mm['albedo_psnr_mapped']:.4f}, mapped roughness psnr "
+        f"{mm['roughness_psnr_mapped']:.4f} (1 epoch, not converged)")
+    _need_modes("matsyn", launches, ("shared_prim", "per_ray_uv"))
+    vals = list(m.values()) + list(nm.values()) + list(mm.values())
+    if not np.isfinite(vals).all():
+        raise SystemExit("[matsyn] non-finite metrics")
+    return launches
+
+
 def main():
     import torch
 
@@ -2285,6 +2569,7 @@ def main():
     s_rows = phase_sampler_kernels(torch, dev, syn)
     b = building_scene(torch, dev)
     rows.update(phase_building_kernels(torch, dev, b))
+    phase_bvh(torch, dev, syn, clusters)
     log(f"[time] kernels checked at {time.time() - t_start:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         path_mesh = phase_export(torch, syn, tmp)
@@ -2306,6 +2591,8 @@ def main():
         phase_mat_profile(torch, path_mesh, tmp)
         s_rows["sorted"]["launches"] = phase_mat_segsum(torch, dev, path_mesh,
                                                         tmp, syn)
+        syn_path, _, _ = phase_syn_export(torch, syn, tmp)
+        phase_matsyn(torch, syn_path, tmp)
         log(f"[time] apartment path done at {time.time() - t_start:.1f} s")
         bpath = phase_building_export(torch, b["syn"], tmp)
         launches = phase_building_proxy(torch, b["syn"], bpath, tmp)

@@ -235,7 +235,7 @@ def test_cli_testers_end_to_end_cpu(cli_scan, stage, extra, files):
 
 def test_cli_relight_pathtrace_names_roadmap(cli_scan):
     argv, _ = cli_scan
-    with pytest.raises(SystemExit, match="ROADMAP.md queue A item 5"):
+    with pytest.raises(SystemExit, match="ROADMAP.md queue A item 10"):
         cli.main(argv + ["--teststage", "Relighting", "--relight_mode",
                          "pathtrace"])
 

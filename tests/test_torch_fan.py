@@ -186,14 +186,29 @@ def test_fan_bake_without_uv_rows_uses_prim_hits(setup, bake):
 
 
 def test_fan_bake_budget_below_leaf_count_raises(setup, bake):
+    """A leaf budget below the scene's leaf count: the JAX baker's
+    cast_ray_fans_exact branch (tracer_irt.py:540-543), each fan traced
+    over its first 8 culled leaves, the overflowing fans again by the BVH,
+    radiance from prim + barycentrics.  Texels within rtol 1e-5 of JAX's
+    on its own uniforms (this test once held that the branch raised)."""
     s, b = setup, bake
+    jt = b["jt"]
     tt = convert.tbl_from_numpy(
-        np.asarray(b["jt"].uv_u), np.asarray(b["jt"].uv_v),
-        [np.asarray(p) for p in b["jt"].planes], device="cpu")
+        np.asarray(jt.uv_u), np.asarray(jt.uv_v),
+        [np.asarray(p) for p in jt.planes], device="cpu",
+        packed=np.asarray(jt.bvh.packed))
+    ref = np.asarray(JBaker(jt, spp=SPP, texel_batch=TEXELS,
+                            fan_scene=s["fan"], max_leaves=8).bake_batch(
+        jnp.asarray(b["pts"]), jnp.asarray(b["nrm"]), jnp.asarray(b["ids"]),
+        jnp.int32(SEED)))
     tb = TBaker(tt, spp=SPP, fan_scene=s["tfan"], max_leaves=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.bake_batch(torch.from_numpy(b["pts"]), torch.from_numpy(b["nrm"]),
-                      torch.from_numpy(b["ids"]), SEED)
+    before = dict(TF.fan_stream_cuda.launches)
+    got = tb.bake_batch(torch.from_numpy(b["pts"]), torch.from_numpy(b["nrm"]),
+                        torch.from_numpy(b["ids"]), SEED,
+                        samples=torch.from_numpy(b["samples"])).numpy()
+    assert TF.fan_stream_cuda.launches == before  # no exhaustive stream
+    assert got.shape == (TEXELS, 3) and ref.mean() > 0.1
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
 
 
 def test_shared_uv_matches_jax(setup, bake):

@@ -48,7 +48,11 @@ def test_scan_covers_the_port():
     for mod in (("ops", "pallas_culled.py"), ("ops", "pallas_fan.py"),
                 ("ops", "chunking.py"), ("eval", "renderer.py"),
                 ("eval", "runners.py"), ("ops", "scatter_acc.py"),
-                ("scripts", "sampler_bwd_variants.py")):
+                ("scripts", "sampler_bwd_variants.py"),
+                ("ops", "raycast.py"), ("ops", "fan_raycast.py"),
+                ("data", "export.py"), ("train", "material_syn.py"),
+                ("scripts", "quality_run.py"),
+                ("scripts", "roughness_classes.py")):
         assert os.path.join("texir_code_tpu_torch", *mod) in names
     assert len(names) > 20
 

@@ -34,10 +34,13 @@ from texir_code_tpu.ops.postprocess import pad_texture as j_pad
 from texir_code_tpu.ops.sampling import stratified_samples
 from texir_code_tpu_torch import cli, convert
 from texir_code_tpu_torch.data import hdrio
+from texir_code_tpu_torch.geometry.bvh import FlatBVH
 from texir_code_tpu_torch.models.tracer_irt import (
     IrradianceTextureBaker as TBaker,
     bake_geometry_textures as t_geometry,
 )
+from texir_code_tpu_torch.ops import fan_raycast as TF
+from texir_code_tpu_torch.ops import pallas_culled as TC
 from texir_code_tpu_torch.ops.pallas_culled import culled_walk_cuda
 from texir_code_tpu_torch.ops.postprocess import atrous_denoise as t_atrous
 from texir_code_tpu_torch.ops.postprocess import pad_texture as t_pad
@@ -77,7 +80,8 @@ def bake_setup(apartment):
     samples = np.array(stratified_samples(
         jax.random.PRNGKey(SEED), TEXELS, SPP, "hammersley", row_keys))
     return dict(
-        jc=jc, jo=jo, jt=jt, pts=pts, nrm=nrm, ids=ids, samples=samples,
+        bvh=bvh, jc=jc, jo=jo, jt=jt, pts=pts, nrm=nrm, ids=ids,
+        samples=samples,
         tc=convert.cluster_scene_from_numpy(
             np.asarray(jc.rows3), np.asarray(jc.prims3),
             np.asarray(jc.cluster_lo), np.asarray(jc.cluster_hi),
@@ -115,6 +119,42 @@ def test_bake_batch_matches_jax(bake_setup, supersample):
                         torch.from_numpy(ids), SEED,
                         samples=torch.from_numpy(samples)).numpy()
     assert ref.shape == got.shape == (TEXELS, 3)
+    assert ref.mean() > 0.1
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_bake_batch_without_uv_rows_matches_jax(bake_setup):
+    """Cluster rows without uv columns (a FanScene built without triangle
+    uvs): the walk emits prim + barycentrics and radiance comes from a
+    per-corner uv lerp and one exact bilinear RGBE fetch
+    (`_fan_estimate_prim_rgbe`).  The port builds its own scene from the
+    same BVH; 16 texels of the batch, JAX's own uniforms."""
+    s, n = bake_setup, 16
+    jb = JBaker(s["jt"], spp=SPP, texel_batch=n, wedges=4,
+                cluster_scene=ClusterScene.from_fan(
+                    FanScene.from_flat(s["bvh"]), lb=4, dense=True),
+                pallas_interpret=True)
+    jb.fan_block, jb.exit_rows = 16, 16
+    assert not jb.cluster_scene.has_uv
+    ref = np.asarray(jb.bake_batch(jnp.asarray(s["pts"][:n]),
+                                   jnp.asarray(s["nrm"][:n]),
+                                   jnp.asarray(s["ids"][:n]),
+                                   jnp.int32(SEED)))
+
+    fb = s["bvh"]
+    tfb = FlatBVH(**{f: getattr(fb, f) for f in (
+        "aabb_min", "aabb_max", "miss", "leaf_start", "leaf_count", "tri_p0",
+        "tri_e1", "tri_e2", "tri_prim", "leaf_width")})
+    tc = TC.ClusterScene.from_fan(TF.FanScene.from_flat(tfb), lb=4,
+                                  dense=True, device="cpu")
+    assert not tc.has_uv
+    tb = TBaker(s["tt"], spp=SPP, texel_batch=n, cluster_scene=tc, wedges=4)
+    tb.fan_block, tb.exit_rows = 32, 16
+    got = tb.bake_batch(torch.from_numpy(s["pts"][:n]),
+                        torch.from_numpy(s["nrm"][:n]),
+                        torch.from_numpy(s["ids"][:n]), SEED,
+                        samples=torch.from_numpy(s["samples"][:n])).numpy()
+    assert ref.shape == got.shape == (n, 3)
     assert ref.mean() > 0.1
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
 
@@ -174,8 +214,8 @@ def test_cli_irrt_end_to_end_cpu(apartment, tmp_path):
 
 
 def test_cli_unported_stage_names_roadmap(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue A item 9"):
-        cli.main(["train", "--conf", _conf(), "--trainstage", "MatSyn"])
+    with pytest.raises(SystemExit, match="ROADMAP.md queue A item 13"):
+        cli.main(["train", "--conf", _conf(), "--trainstage", "IRRF"])
 
 
 def test_runner_unported_knob_raises(apartment, tmp_path):

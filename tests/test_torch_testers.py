@@ -264,7 +264,7 @@ def test_forward_relit_chunks_match(relighting):
 
 def test_relighting_pathtrace_not_ported(relighting):
     _, tr = relighting
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
+    with pytest.raises(NotImplementedError, match="queue A item 10"):
         tr.run(mode="pathtrace")
 
 

@@ -2,7 +2,7 @@
 
 Train (reference trainer/exp_runner.py):
     python -m texir_code_tpu_torch.cli train --conf configs/x.conf \
-        --trainstage {IrrT,Mat} [--irt_res 1024] [--max_epochs E] \
+        --trainstage {IrrT,Mat,MatSyn} [--irt_res 1024] [--max_epochs E] \
         [--is_continue [--timestamp T]] [--set KEY=VAL ...] \
         [--device cuda|cpu]
 
@@ -34,8 +34,6 @@ from texir_code_tpu_torch.config import _parse_value, parse_file
 
 # stages of the JAX CLI that are not ported yet → their ROADMAP.md item
 _NOT_PORTED = {
-    "MatSyn": "queue A item 9 (the synthetic-GT Mat runner, "
-              "train/material_syn.py)",
     "IRRF": "queue A item 13 (fields + field stages)",
     "IRF": "queue A item 13 (fields + field stages)",
     "PIL": "queue A item 13 (fields + field stages)",
@@ -68,7 +66,17 @@ def _mat(conf, args):
     ).run()
 
 
-TRAIN_STAGES = {"IrrT": _irrt, "Mat": _mat}
+def _mat_syn(conf, args):
+    from texir_code_tpu_torch.train.material_syn import MatTrainSynRunner
+
+    return MatTrainSynRunner(
+        conf, expname=args.expname, exps_root=args.exps_folder,
+        is_continue=args.is_continue, timestamp=args.timestamp,
+        conf_path=args.conf, max_epochs=args.max_epochs, device=args.device,
+    ).run()
+
+
+TRAIN_STAGES = {"IrrT": _irrt, "Mat": _mat, "MatSyn": _mat_syn}
 
 
 def _tester(cls, conf, args):

@@ -17,6 +17,7 @@ from texir_code_tpu_torch.geometry.mesh import Mesh
 from texir_code_tpu_torch.geometry.occluders import OccluderSet
 from texir_code_tpu_torch.models.material import MaterialParams
 from texir_code_tpu_torch.models.tbl import TBL
+from texir_code_tpu_torch.ops.raycast import DeviceBVH
 from texir_code_tpu_torch.ops.pallas_culled import ClusterScene
 
 
@@ -41,13 +42,17 @@ def cluster_scene_from_numpy(
     )
 
 
-def tbl_from_numpy(uv_u, uv_v, planes, device="cuda") -> TBL:
-    """TBL from a JAX `TBL`'s per-corner uvs and three atlas planes."""
+def tbl_from_numpy(uv_u, uv_v, planes, device="cuda", packed=None) -> TBL:
+    """TBL from a JAX `TBL`'s per-corner uvs and three atlas planes, and
+    optionally its DeviceBVH's supernode table (`packed`, [N, 8 + 10·lw])."""
     dev = resolve_device(device)
+    bvh = (None if packed is None else DeviceBVH(
+        _t(packed, np.float32, dev), (np.shape(packed)[1] - 8) // 10))
     return TBL(
         uv_u=_t(uv_u, np.float32, dev),
         uv_v=_t(uv_v, np.float32, dev),
         planes=tuple(_t(p, np.float32, dev) for p in planes),
+        bvh=bvh,
     )
 
 

@@ -6,12 +6,16 @@ panos, extrinsics, mesh + atlas (and room segmentation for multi-room
 scenes) — so the Mat stage runs hermetically on the layout the reference
 expects (see data/datasets.py).
 
-The pano rays go through the culled cluster walk with shared origins (one
-camera per pano); the JAX exporter uses its BVH traversal, and both find
-the same closest hits.  Two deliberate differences: the LDR preview is
-written as `derived/<id>/panoImage_orig.png` (there is no JPEG encoder
-without OpenCV; the dataset reads either, and a JPEG's pixels are never
-used), and `gt_render="material"` is not ported.
+The radiance panos' rays go through the culled cluster walk with shared
+origins (one camera per pano); the JAX exporter uses its BVH traversal,
+and both find the same closest hits.  `gt_render="material"` photographs
+each view through the forward material model (`render_pano_material`):
+the primary hit from the BVH traversal, the GT IrT baked by the port's
+baker over a ClusterScene (kernel B1's bake mode on the card), and the
+specular rays through the culled walk with per-ray origins.  One
+deliberate difference: the LDR preview is written as
+`derived/<id>/panoImage_orig.png` (there is no JPEG encoder without
+OpenCV; the dataset reads either, and a JPEG's pixels are never used).
 """
 
 from __future__ import annotations
@@ -76,6 +80,107 @@ def render_pano(tbl, cluster_scene, cam_position, res: Tuple[int, int]) -> np.nd
     return torch.stack(rgb, dim=-1).cpu().numpy().reshape(res + (3,))
 
 
+def render_pano_material(
+    mesh,
+    tbl,
+    irt_texture: np.ndarray,
+    gt_albedo: np.ndarray,
+    gt_roughness: np.ndarray,
+    cam_position,
+    res: Tuple[int, int],
+    spp: int = 256,
+    seed: int = 0,
+    fan_scene=None,
+    cluster_scene=None,
+    chunk: int = 16384,
+    samples: Optional[torch.Tensor] = None,
+    pixels: Optional[Tuple[int, int]] = None,
+) -> np.ndarray:
+    """GT pano [h, w, 3] rendered through the forward material model.
+
+    Diffuse = IrT·albedo/π; specular = GGX importance-sampled Cook-Torrance
+    MC against the TBL — the shading the Mat stages optimize through
+    (reference models/mat_nvdiffrast.py:203-279), at the GT atlases with
+    high spp, so the photos carry view-dependent specular signal and the
+    GT atlases are an optimum of the Mat inverse problem.  The primary hit
+    is the BVH traversal's (t_min 1e-5); the specular rays go through
+    query_tbl_auto: the culled walk with per-ray origins when a cluster
+    scene is given (exact radiance_from_hit fetch), the BVH otherwise.
+
+    Args:
+        tbl: TBL with a BVH, on the device the render runs on.
+        irt_texture / gt_albedo / gt_roughness: [H, W, C] atlases (v-up).
+        spp: specular samples a pixel.
+        seed: the draws are keyed by (seed, pixel id), whatever the chunk.
+        samples: optional [h·w, spp, 2] uniforms replacing the draws
+            (parity tests inject the JAX exporter's).
+        pixels: optional raster pixel ids [p0, p1): only they are
+            rendered ([p1 - p0, 3]), with the same draws as in the full
+            pano.
+    """
+    from texir_code_tpu_torch.models.tbl import query_tbl_auto
+    from texir_code_tpu_torch.ops.gbuffer import (
+        DeviceMesh,
+        interpolate_attributes,
+    )
+    from texir_code_tpu_torch.ops.raycast import cast_rays_soa
+    from texir_code_tpu_torch.ops.sampling import generate_dir_soa, reflect_soa
+    from texir_code_tpu_torch.ops.shading import specular_estimator_soa
+    from texir_code_tpu_torch.ops.texture import bilinear_sample
+
+    h, w = res
+    dev = tbl.planes[0].device
+    dm = DeviceMesh.from_mesh(mesh, dev)
+    p0, p1 = pixels if pixels is not None else (0, h * w)
+    d_all = torch.from_numpy(pano_dirs(h, w).reshape(-1, 3)[p0:p1]).to(dev)
+    n_all = d_all.shape[0]
+    cam = torch.as_tensor(np.asarray(cam_position, np.float32), device=dev)
+
+    def atlas(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    alb_t, rgh_t, irt_t = atlas(gt_albedo), atlas(gt_roughness), atlas(
+        irt_texture)
+    out = torch.empty((n_all, 3), dtype=torch.float32, device=dev)
+    for i0 in range(0, n_all, chunk):
+        i1 = min(i0 + chunk, n_all)
+        n = i1 - i0
+        dirs = tuple(d_all[i0:i1, k] for k in range(3))
+        hit = cast_rays_soa(tbl.bvh, tuple(cam[k].expand(n) for k in range(3)),
+                            dirs, t_min=1e-5)
+        valid = hit.prim >= 0
+        position, normal, uv = interpolate_attributes(dm, hit)
+        albedo = bilinear_sample(alb_t, uv)
+        rough = bilinear_sample(rgh_t, uv)[:, 0]
+        irr = bilinear_sample(irt_t, uv)
+        diffuse = irr * albedo / np.pi
+
+        # the trainers shade from position + 1e-2·normal (reference :151)
+        pts = position + 1e-2 * normal
+        view_v = cam[None, :] - pts
+        view_v = view_v / torch.clamp_min(
+            torch.linalg.vector_norm(view_v, dim=-1, keepdim=True), 1e-4)
+        n_soa = tuple(normal[:, k] for k in range(3))
+        v_soa = tuple(view_v[:, k] for k in range(3))
+        half = generate_dir_soa(
+            n_soa, spp, mode="importance", roughness=rough,
+            pre_mode="independent",
+            samples=(None if samples is None
+                     else samples[p0 + i0:p0 + i1].to(dev)),
+            row_ids=torch.arange(p0 + i0, p0 + i1, device=dev), seed=seed,
+        )
+        light_dirs, _ = reflect_soa(v_soa, half)
+        spec_o = tuple(pts[:, k:k + 1].expand(n, spp) for k in range(3))
+        lighting = query_tbl_auto(tbl, spec_o, light_dirs, cluster_scene,
+                                  fan_scene=fan_scene)
+        spec = specular_estimator_soa(lighting, half, n_soa, v_soa,
+                                      light_dirs, rough)
+        rgb = diffuse + torch.stack(spec, dim=-1) / spp
+        out[i0:i1] = torch.where(valid[:, None], rgb, torch.zeros_like(rgb))
+    out = out.cpu().numpy()
+    return out if pixels is not None else out.reshape(h, w, 3)
+
+
 def render_seg_pano(tbl, cluster_scene, seg_texture: np.ndarray, cam_position,
                     res) -> np.ndarray:
     """Per-pixel segmentation id pano [h, w]: nearest atlas lookup at the
@@ -112,25 +217,32 @@ def export_reference_layout(
     pano_res: Tuple[int, int] = (128, 256),
     with_gt: bool = True,
     gt_render: str = "radiance",
+    gt_spp: int = 256,
+    irt_spp: int = 512,
     cameras=None,
     device="cuda",
 ) -> str:
     """Write the reference dataset layout; returns path_mesh (out1.obj).
 
     gt_render: 'radiance' — photos are plain TBL lookups (view-independent:
-    fine for the pipeline, but without specular signal).  'material' (the
-    JAX package renders photos through the forward material model) is not
-    ported (ROADMAP.md queue A item 12)."""
+    fine for the pipeline, but without specular signal, so gt_roughness
+    cannot be recovered from them); 'material' — the GT IrT is baked at
+    irt_spp (written as mesh/gt_irt.hdr, gutters padded) and each photo is
+    rendered through the forward material model from the GT atlases at
+    gt_spp specular samples (render_pano_material), the synthetic-data
+    contract the Mat-syn metrics assume.  The material mode's draws are
+    the JAX exporter's seeds: view i with seed i, the GT IrT bake from a
+    generator seeded 7.  `export_reference_layout.timings` holds the last
+    call's bake and per-view seconds."""
+    import time
+
     from texir_code_tpu_torch.geometry.bvh import build_bvh
-    from texir_code_tpu_torch.models.tbl import build_tbl
+    from texir_code_tpu_torch.models.tbl import build_tbl_from_flat
     from texir_code_tpu_torch.ops.fan_raycast import FanScene
     from texir_code_tpu_torch.ops.pallas_culled import ClusterScene
 
-    if gt_render != "radiance":
-        raise NotImplementedError(
-            f"gt_render={gt_render!r}: the material-rendered export is not "
-            f"ported yet (ROADMAP.md queue A item 12)"
-        )
+    if gt_render not in ("radiance", "material"):
+        raise ValueError(f"unknown gt_render: {gt_render!r}")
     dev = resolve_device(device)
     root = out_dir
     mesh_dir = os.path.join(root, "mesh")
@@ -153,8 +265,8 @@ def export_reference_layout(
         hdrio.write_png(os.path.join(rdir, "roomSegs_uchar_f0.png"),
                         _as_u8(np.asarray(room_img), "room"))
 
-    tbl = build_tbl(scene.mesh, scene.hdr_texture, device=dev)
     flat = build_bvh(scene.mesh.vertices, scene.mesh.faces)
+    tbl = build_tbl_from_flat(flat, scene.mesh, scene.hdr_texture, device=dev)
     fan = FanScene.from_flat(flat, triangle_uvs=scene.mesh.triangle_uvs())
     clusters = ClusterScene.from_fan(fan, lb=8, dense=True, device=dev)
     cams = (np.asarray(cameras, np.float32) if cameras is not None
@@ -172,10 +284,41 @@ def export_reference_layout(
             for row in e:
                 f.write(" ".join(f"{x:.6f}" for x in row) + "\n")
 
+    timings = {"bake_s": 0.0, "views_s": []}
+    gt_irt = mat_clusters = None
+    if gt_render == "material":
+        from texir_code_tpu_torch.models.tracer_irt import (
+            IrradianceTextureBaker,
+            bake_geometry_textures,
+        )
+        from texir_code_tpu_torch.ops.postprocess import pad_texture
+
+        t0 = time.time()
+        # the JAX exporter's scene for its device kernels: lb 4, dense
+        mat_clusters = ClusterScene.from_fan(fan, lb=4, dense=True,
+                                             device=dev)
+        baker = IrradianceTextureBaker(tbl, spp=irt_spp, texel_batch=4096,
+                                       cluster_scene=mat_clusters)
+        geom = bake_geometry_textures(scene.mesh, scene.hdr_texture.shape[0])
+        gt_irt = pad_texture(
+            baker.bake(geom, torch.Generator().manual_seed(7)),
+            geom.valid)
+        timings["bake_s"] = time.time() - t0
+        hdrio.write_hdr(os.path.join(mesh_dir, "gt_irt.hdr"), gt_irt,
+                        flip=True)
+
     for vid, cam in zip(ids, cams):
         os.makedirs(os.path.join(root, "derived", vid), exist_ok=True)
         os.makedirs(os.path.join(root, "hdr", vid), exist_ok=True)
-        color = render_pano(tbl, clusters, cam, pano_res)
+        t0 = time.time()
+        if gt_render == "material":
+            color = render_pano_material(
+                scene.mesh, tbl, gt_irt, scene.gt_albedo, scene.gt_roughness,
+                cam, pano_res, spp=gt_spp, seed=int(vid[-3:]),
+                cluster_scene=mat_clusters)
+        else:
+            color = render_pano(tbl, clusters, cam, pano_res)
+        timings["views_s"].append(time.time() - t0)
         hdrio.write_hdr(os.path.join(root, "hdr", vid, "ccm.hdr"), color)
         # the LDR preview (full coverage: no alpha, like the JAX exporter's
         # JPEG)
@@ -195,4 +338,8 @@ def export_reference_layout(
                         np.power(np.clip(scene.gt_albedo, 0, 1), 1 / 2.2))
         hdrio.write_hdr(os.path.join(gt_dir, "roughness.hdr"),
                         scene.gt_roughness)
+    export_reference_layout.timings = timings
     return path_mesh
+
+
+export_reference_layout.timings = {"bake_s": 0.0, "views_s": []}

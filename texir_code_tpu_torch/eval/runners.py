@@ -45,8 +45,7 @@ from texir_code_tpu_torch.train.exp import ExperimentDir, seed_everything
 SEED = 666
 PATHTRACE_NOT_PORTED = (
     "relight_mode 'pathtrace' is not ported to texir_code_tpu_torch yet: it "
-    "needs eval/path_tracer.py and its BVH traversal (ROADMAP.md queue A "
-    "item 5, then item 10)"
+    "needs eval/path_tracer.py (ROADMAP.md queue A item 10)"
 )
 
 

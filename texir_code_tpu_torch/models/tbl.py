@@ -1,14 +1,18 @@
 """TBL — Texture-Based Lighting: the scene's own HDR atlas as the emitter.
 
 Incident radiance along a ray is the HDR texture of the mesh at the ray's
-hit point.  The port of the JAX package's `models/tbl.py` on its culled
-path: the per-corner uvs, the atlas planes, the RGBE-packed atlas fetches
-(exact bilinear, and the 2×-supersampled prefiltered atlas read with one
-nearest fetch), `radiance_from_hit`, and the bulk ray query
-`query_tbl_stream` / `query_tbl_auto`, whose rays go through the culled
-cluster walk (kernel B1 on the card, its plain version on the CPU) or,
-for a scene with only a FanScene, the exhaustive leaf stream (kernel B3).
-The JAX package's BVH traversal is not ported: this TBL holds no BVH.
+hit point.  The port of the JAX package's `models/tbl.py`: the per-corner
+uvs, the atlas planes and the scene's skip-link BVH; the RGBE-packed atlas
+fetches (exact bilinear, and the 2×-supersampled prefiltered atlas read
+with one nearest fetch); `radiance_from_hit`; the BVH queries
+(`query_tbl_soa` and its AoS wrappers `query_tbl` / `query_tbl_multi`,
+ops.raycast.cast_rays_soa in plain PyTorch), the leaf-budgeted fan query
+`query_tbl_fans` (ops.fan_raycast.cast_ray_fans_exact); and the bulk ray
+query `query_tbl_stream` / `query_tbl_auto`, whose rays go through the
+culled cluster walk (kernel B1 on the card, its plain version on the CPU)
+or, for a scene with only a FanScene, the exhaustive leaf stream (kernel
+B3).  `query_tbl_auto` with neither scene traces with the BVH, as the JAX
+package's does.
 
 Conventions of the reference: hits with t ≤ 1e-4 (or misses) give zero
 radiance; barycentric uv is clipped to [0, 1]; the atlas is fetched with
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from texir_code_tpu_torch.device import resolve_device
+from texir_code_tpu_torch.ops.raycast import DeviceBVH, cast_rays_soa
 from texir_code_tpu_torch.ops.shading import rgb_to_intensity
 
 
@@ -38,11 +43,14 @@ class TBL:
     Attributes:
         uv_u, uv_v: [F*3] per-corner uv components (indexed prim*3+k).
         planes: three [H, W] HDR atlas channel planes, exposure-scaled, v-up.
+        bvh: the emitter mesh's DeviceBVH, which the BVH queries trace
+            (None: a TBL for the culled walk or the leaf stream only).
     """
 
     uv_u: torch.Tensor
     uv_v: torch.Tensor
     planes: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    bvh: Optional[DeviceBVH] = None
 
     @property
     def texture(self) -> torch.Tensor:
@@ -52,13 +60,17 @@ class TBL:
     def with_texture(self, texture: torch.Tensor) -> "TBL":
         """The same TBL with the atlas replaced ([H, W, 3])."""
         planes = tuple(texture[..., k].contiguous() for k in range(3))
-        return TBL(self.uv_u, self.uv_v, planes)
+        return TBL(self.uv_u, self.uv_v, planes, self.bvh)
 
 
-def build_tbl(mesh, texture, hdr_exposure: float = 0.0, device="cuda") -> TBL:
-    """Host-side constructor: mesh + HDR atlas → TBL.
+def build_tbl_from_flat(flat_bvh, mesh, texture, hdr_exposure: float = 0.0,
+                        device="cuda") -> TBL:
+    """TBL from a pre-built FlatBVH (one build shared by the TBL, the
+    FanScene and the ClusterScene).
 
     Args:
+        flat_bvh: geometry.bvh.FlatBVH of the mesh; its supernode table goes
+            to the device as the TBL's BVH.
         mesh: geometry.Mesh with uvs.
         texture: [H, W, 3] float32 HDR atlas, v-up row order.
         hdr_exposure: multiplies the atlas by 2**hdr_exposure.
@@ -73,16 +85,18 @@ def build_tbl(mesh, texture, hdr_exposure: float = 0.0, device="cuda") -> TBL:
             torch.from_numpy(np.ascontiguousarray(tex[..., k])).to(dev)
             for k in range(3)
         ),
+        bvh=DeviceBVH.from_flat(flat_bvh, device=dev),
     )
 
 
-def build_tbl_from_flat(flat_bvh, mesh, texture, hdr_exposure: float = 0.0,
-                        device="cuda") -> TBL:
-    """TBL beside a pre-built FlatBVH, as the JAX package builds it.  The
-    port's TBL holds no BVH (its rays go through a ClusterScene built from
-    the same FlatBVH), so only the mesh and the atlas are read."""
-    del flat_bvh
-    return build_tbl(mesh, texture, hdr_exposure, device=device)
+def build_tbl(mesh, texture, hdr_exposure: float = 0.0, device="cuda") -> TBL:
+    """Host-side constructor: mesh + HDR atlas → TBL, building the mesh's
+    BVH (geometry.bvh.build_bvh)."""
+    from texir_code_tpu_torch.geometry.bvh import build_bvh
+
+    flat = build_bvh(mesh.vertices, mesh.faces)
+    return build_tbl_from_flat(flat, mesh, texture, hdr_exposure,
+                               device=device)
 
 
 def vhl_texture(texture: torch.Tensor, hdr_exposure: float) -> torch.Tensor:
@@ -219,6 +233,64 @@ def radiance_from_hit(tbl: TBL, hit, t_valid: float = 1e-4):
     return tuple(torch.where(valid, c, torch.zeros_like(c)) for c in rgb)
 
 
+def query_tbl_soa(tbl: TBL, points, dirs, t_valid: float = 1e-4):
+    """Incident radiance along rays through the BVH, SoA (the fused
+    `query_irf`).
+
+    Args:
+        points / dirs: 3-tuples of same-shape ray origins (pre-offset by
+            ε·normal at call sites) and directions.
+        t_valid: hits at t ≤ this give zero radiance.
+    Returns:
+        (r, g, b) shaped like points[0]; zero for misses.
+    """
+    if tbl.bvh is None:
+        raise ValueError("query_tbl_soa needs a TBL with a BVH "
+                         "(build_tbl / build_tbl_from_flat)")
+    hit = cast_rays_soa(tbl.bvh, points, dirs, t_min=0.0)
+    return radiance_from_hit(tbl, hit, t_valid)
+
+
+def query_tbl(tbl: TBL, points: torch.Tensor, dirs: torch.Tensor,
+              t_valid: float = 1e-4) -> torch.Tensor:
+    """AoS wrapper: points/dirs [B, 3] → radiance [B, 3]."""
+    out = query_tbl_soa(
+        tbl, tuple(points[..., k] for k in range(3)),
+        tuple(dirs[..., k] for k in range(3)), t_valid)
+    return torch.stack(out, dim=-1)
+
+
+def query_tbl_multi(tbl: TBL, points: torch.Tensor, dirs: torch.Tensor,
+                    t_valid: float = 1e-4) -> torch.Tensor:
+    """AoS batched-sample wrapper: points [B, 3], dirs [B, S, 3] →
+    [B, S, 3]."""
+    b, s, _ = dirs.shape
+    pts = tuple(points[:, None, k].expand(b, s) for k in range(3))
+    out = query_tbl_soa(tbl, pts, tuple(dirs[..., k] for k in range(3)),
+                        t_valid)
+    return torch.stack(out, dim=-1)
+
+
+def query_tbl_fans(tbl: TBL, fan_scene, origins, dirs, fan_normals=None,
+                   t_valid: float = 1e-4, max_leaves: int = 512):
+    """Fan-structured TBL query: T shared origins × R directions through
+    the leaf-budgeted fan trace, the fans that overflow the budget
+    re-traced by the BVH (ops.fan_raycast.cast_ray_fans_exact; one host
+    sync a call).
+
+    Args:
+        origins: 3×[T]; dirs: 3×[T, R]; fan_normals: optional hemisphere
+            axes for tangent-plane culling.
+    Returns:
+        (r, g, b) each [T, R].
+    """
+    from texir_code_tpu_torch.ops.fan_raycast import cast_ray_fans_exact
+
+    hit = cast_ray_fans_exact(fan_scene, tbl.bvh, origins, dirs, t_min=0.0,
+                              max_leaves=max_leaves, fan_normals=fan_normals)
+    return radiance_from_hit(tbl, hit, t_valid)
+
+
 def _row_split(n: int, max_r: int = 2048) -> int:
     """Largest multiple-of-128 row width dividing n (n % 128 == 0)."""
     r = min(max_r, n)
@@ -316,7 +388,10 @@ def query_tbl_auto(tbl: TBL, origins, dirs, cluster_scene, **kw):
     128 with zero directions (which hit nothing) and drops the padding.
     The device of the tensors picks the trace: the CUDA kernel on the
     card, its plain version on the CPU (ops.pallas_culled.culled_walk,
-    ops.pallas_fan.fan_stream)."""
+    ops.pallas_fan.fan_stream).  With neither a cluster scene nor a
+    fan_scene the rays go through the BVH (query_tbl_soa)."""
+    if cluster_scene is None and kw.get("fan_scene") is None:
+        return query_tbl_soa(tbl, origins, dirs, kw.get("t_valid", 1e-4))
     shape = origins[0].shape
     total = int(np.prod(shape))
     pad = (-total) % 128

@@ -11,9 +11,14 @@ traced by the culled cluster walk (ops.pallas_culled, a CUDA kernel on the
 card) with the hit's atlas uv interpolated in the walk, and the radiance
 read with one fetch from the prefiltered RGBE atlas.  Multi-room scans
 trace in two passes (`two_pass_cut`) and may seed the walk from an
-occlusion proxy (`proxy_scene`); both are exact.  A baker given only a
-FanScene (and a leaf budget covering it) traces each fan exhaustively
-against every leaf row instead (ops.pallas_fan, another CUDA kernel).
+occlusion proxy (`proxy_scene`); both are exact.  Cluster rows without
+uv columns give prim + barycentrics instead, and the radiance is an exact
+bilinear fetch from the RGBE atlas.  A baker given only a FanScene traces
+each fan against every leaf row when its leaf budget covers the scene
+(ops.pallas_fan, another CUDA kernel), or else against its first
+`max_leaves` culled leaves, re-tracing overflowing fans with the BVH
+(ops.fan_raycast.cast_ray_fans_exact).  A baker given neither scene
+traces every ray with the BVH (`bake_irradiance_soa`).
 """
 
 from __future__ import annotations
@@ -28,11 +33,16 @@ from texir_code_tpu_torch.models.tbl import (
     TBL,
     bilinear_rgbe,
     nearest_rgbe,
+    query_tbl_fans,
+    query_tbl_soa,
     radiance_from_hit,
     rgbe_pack,
     rgbe_prefilter,
 )
-from texir_code_tpu_torch.ops.fan_raycast import FAN_ROW_WIDTH_UV
+from texir_code_tpu_torch.ops.fan_raycast import (
+    FAN_ROW_WIDTH_UV,
+    cast_ray_fans_exact,
+)
 from texir_code_tpu_torch.ops.pallas_fan import cast_ray_fans_pallas
 from texir_code_tpu_torch.ops.pallas_culled import (
     cast_fans_culled,
@@ -44,16 +54,29 @@ from texir_code_tpu_torch.ops.pallas_culled import (
 from texir_code_tpu_torch.ops.sampling import generate_dir_soa
 from texir_code_tpu_torch.ops.shading import irradiance_estimator_soa
 
-# paths of the JAX baker that are not ported yet
-_TODO_TRAVERSAL = (
-    "ROADMAP.md queue A item 5 (BVH traversal): bake with neither a "
-    "ClusterScene nor a FanScene"
-)
-_TODO_FAN_EXACT = (
-    "ROADMAP.md queue A item 5 (cast_ray_fans_exact, the BVH traversal): "
-    "a FanScene bake with max_leaves below the scene's leaf count"
-)
-_TODO_PRIM = "ROADMAP.md queue A item 5 (radiance_from_hit): cluster rows without uv"
+
+def bake_irradiance_soa(tbl: TBL, points, normals, texel_ids: torch.Tensor,
+                        seed: int, spp: int, surface_eps: float,
+                        fan_scene=None, max_leaves: int = 768,
+                        samples=None):
+    """Core SoA bake: points/normals 3×[B] → irradiance 3×[B].
+
+    The uniforms are keyed by (seed, global texel id), so a batch split
+    changes nothing; `samples` ([B, spp, 2]) replaces them.  With
+    `fan_scene` the rays go through the leaf-budgeted fan trace with
+    tangent-plane culling (each texel one fan, query_tbl_fans); otherwise
+    every ray through the BVH (query_tbl_soa)."""
+    dirs = generate_dir_soa(normals, spp, mode="uniform", samples=samples,
+                            row_ids=texel_ids, seed=seed)
+    b = points[0].shape[0]
+    origins = tuple(points[k] + surface_eps * normals[k] for k in range(3))
+    if fan_scene is not None:
+        lighting = query_tbl_fans(tbl, fan_scene, origins, dirs,
+                                  fan_normals=normals, max_leaves=max_leaves)
+    else:
+        lighting = query_tbl_soa(
+            tbl, tuple(o[:, None].expand(b, spp) for o in origins), dirs)
+    return irradiance_estimator_soa(lighting, dirs, normals, spp)
 
 
 def morton_order(points: np.ndarray) -> np.ndarray:
@@ -195,8 +218,10 @@ class IrradianceTextureBaker:
             surface_eps: ray-origin offset along the normal.
             fan_scene: ops.fan_raycast.FanScene — without a cluster scene,
                 each texel's fan is traced exhaustively against every leaf
-                row (ops.pallas_fan); this needs max_leaves >= its leaf
-                count (the budgeted traversal is not ported yet).
+                row (ops.pallas_fan) when max_leaves covers the leaf count,
+                else against its first max_leaves culled leaves with the
+                overflowing fans re-traced by the BVH.  With neither scene
+                every ray goes through the TBL's BVH.
             max_leaves: the fan path's per-texel leaf budget.
             cluster_scene: ops.pallas_culled.ClusterScene — the culled,
                 early-exiting walk (exact); takes precedence over
@@ -253,12 +278,11 @@ class IrradianceTextureBaker:
     def _bake_culled_impl(self, points, normals, texel_ids, seed, samples=None):
         """Culled wedge path: one texel = one fan, its spp directions
         octant-sorted and split into `wedges` rows; hits from the culled
-        walk with the atlas uv interpolated in the walk (the cluster rows
-        carry per-triangle uv coefficients); radiance one RGBE fetch per
-        ray."""
+        walk with the atlas uv interpolated in the walk when the cluster
+        rows carry per-triangle uv coefficients (radiance one RGBE fetch a
+        ray), else prim + barycentrics (_fan_estimate_prim_rgbe)."""
         scene = self.cluster_scene
-        if not scene.has_uv:
-            raise NotImplementedError(_TODO_PRIM)
+        emit_uv = bool(scene.has_uv)
         nrm = tuple(normals[:, k] for k in range(3))
         g = self.wedges
         dirs = generate_dir_soa(
@@ -274,7 +298,7 @@ class IrradianceTextureBaker:
         if self.two_pass_cut is not None:
             hit = cast_fans_culled_twopass(
                 scene, rows_o, rows_d,
-                emit_uv=True,
+                emit_uv=emit_uv,
                 fan_block=self.fan_block,
                 exit_rows=self.exit_rows,
                 cut_frac=self.two_pass_cut,
@@ -287,14 +311,17 @@ class IrradianceTextureBaker:
         else:
             hit = cast_fans_culled(
                 scene, rows_o, rows_d,
-                emit_uv=True,
+                emit_uv=emit_uv,
                 fan_block=self.fan_block,
                 exit_rows=self.exit_rows,
                 proxy=self.proxy_scene,
                 occluders=self.occluders,
             )
         rows_n = tuple(tile_rows(a, g) for a in nrm)
-        part = self._fan_estimate_uv(hit.t, hit.u, hit.v, rows_d, rows_n)
+        if emit_uv:
+            part = self._fan_estimate_uv(hit.t, hit.u, hit.v, rows_d, rows_n)
+        else:
+            part = self._fan_estimate_prim_rgbe(hit, rows_d, rows_n)
         t = points.shape[0]
         return part.reshape(g, t, 3).sum(dim=0)
 
@@ -321,14 +348,36 @@ class IrradianceTextureBaker:
             dim=-1,
         )
 
+    def _fan_estimate_prim_rgbe(self, hit, dirs, normals_soa):
+        """Estimator from barycentric hits: per-corner uv lerp and one exact
+        bilinear fetch from the RGBE atlas a ray."""
+        valid = torch.isfinite(hit.t) & (hit.t > 1e-4)
+        prim = torch.where(valid, hit.prim, 0).to(torch.int64)
+        u = torch.clamp(hit.u, 0.0, 1.0)
+        v = torch.clamp(hit.v, 0.0, 1.0)
+        w0 = 1.0 - u - v
+        base = prim * 3
+        uv_u, uv_v = self.tbl.uv_u, self.tbl.uv_v
+        uu = uv_u[base] * w0 + uv_u[base + 1] * u + uv_u[base + 2] * v
+        vv = uv_v[base] * w0 + uv_v[base + 1] * u + uv_v[base + 2] * v
+        rgb = bilinear_rgbe(self._rgbe, torch.clamp(uu, 0.0, 1.0),
+                            torch.clamp(vv, 0.0, 1.0))
+        lighting = tuple(torch.where(valid, c, torch.zeros_like(c))
+                         for c in rgb)
+        return torch.stack(
+            irradiance_estimator_soa(lighting, dirs, normals_soa, self.spp),
+            dim=-1,
+        )
+
     def _bake_fan_impl(self, points, normals, texel_ids, seed, samples=None):
-        """Exhaustive fan path: one texel = one shared-origin row of its spp
-        directions (no octant sort, no wedges), traced against every leaf
-        row; with uv rows the stream interpolates the hit's atlas uv
-        (one RGBE fetch a ray), else radiance comes from prim +
-        barycentrics (radiance_from_hit)."""
-        if self.max_leaves < self.fan_scene.num_leaves:
-            raise NotImplementedError(_TODO_FAN_EXACT)
+        """Fan path: one texel = one shared-origin row of its spp
+        directions (no octant sort, no wedges).  With a leaf budget that
+        covers the scene each fan is traced against every leaf row; with
+        uv rows the stream interpolates the hit's atlas uv (one RGBE fetch
+        a ray).  With a smaller budget each fan is traced against its
+        first max_leaves culled leaves and an overflowing fan again by the
+        BVH (cast_ray_fans_exact).  Without uv rows, or with the budget,
+        radiance comes from prim + barycentrics (radiance_from_hit)."""
         nrm = tuple(normals[:, k] for k in range(3))
         dirs = generate_dir_soa(
             nrm, self.spp, mode="uniform", samples=samples,
@@ -337,12 +386,18 @@ class IrradianceTextureBaker:
         origins = tuple(
             points[:, k] + self.surface_eps * normals[:, k] for k in range(3)
         )
-        hit = cast_ray_fans_pallas(
-            self.fan_scene, origins, dirs, t_min=0.0, fan_block=8,
-            leaf_block=32, emit_uv=self._fan_has_uv,
-        )
-        if self._fan_has_uv:
-            return self._fan_estimate_uv(hit.t, hit.u, hit.v, dirs, nrm)
+        if self.max_leaves < self.fan_scene.num_leaves:
+            hit = cast_ray_fans_exact(
+                self.fan_scene, self.tbl.bvh, origins, dirs, t_min=0.0,
+                max_leaves=self.max_leaves, fan_normals=nrm,
+            )
+        else:
+            hit = cast_ray_fans_pallas(
+                self.fan_scene, origins, dirs, t_min=0.0, fan_block=8,
+                leaf_block=32, emit_uv=self._fan_has_uv,
+            )
+            if self._fan_has_uv:
+                return self._fan_estimate_uv(hit.t, hit.u, hit.v, dirs, nrm)
         lighting = radiance_from_hit(self.tbl, hit)
         return torch.stack(
             irradiance_estimator_soa(lighting, dirs, nrm, self.spp), dim=-1)
@@ -367,7 +422,16 @@ class IrradianceTextureBaker:
         if self.fan_scene is not None:
             return self._bake_fan_impl(points, normals, texel_ids, seed,
                                        samples)
-        raise NotImplementedError(_TODO_TRAVERSAL)
+        return self._bake_batch_traversal(points, normals, texel_ids, seed,
+                                          samples)
+
+    def _bake_batch_traversal(self, points, normals, texel_ids, seed,
+                              samples=None):
+        """No scene but the TBL's BVH: every ray traced by the traversal."""
+        return torch.stack(bake_irradiance_soa(
+            self.tbl, tuple(points[:, k] for k in range(3)),
+            tuple(normals[:, k] for k in range(3)), texel_ids, seed,
+            self.spp, self.surface_eps, samples=samples), dim=-1)
 
     def bake(
         self,

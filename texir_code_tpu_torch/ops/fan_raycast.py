@@ -16,6 +16,14 @@ records (`pack_records`, `FanScene.device_records`).  The row packing is
 numpy and equal, array for array, to the JAX package's.
 `closest_hit_block` is the test of a block of these triangles in plain
 PyTorch, the inner loop of both kernels' plain versions.
+
+`cast_ray_fans` is the JAX package's leaf-budgeted fan trace in plain
+PyTorch (XLA runs it there, outside any Pallas kernel): a dense fan × leaf
+cull (swept point-beam and front half-space, optionally the fan's tangent
+plane), each fan's first K overlapping leaves in row order, a loop over
+those K leaves, and per-fan overflow flags where more than K leaves
+overlap.  `cast_ray_fans_exact` re-traces the overflowing fans with the
+BVH (ops.raycast.cast_rays_soa).
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 from texir_code_tpu_torch.geometry.bvh import FlatBVH
+from texir_code_tpu_torch.ops.raycast import RayHit, cast_rays_soa
 
 # per-leaf row: aabb(6) count(1) pad(1) prim(4) + 4 × [n(3) dist(1) s1(3)
 # p0s1(1) s2(3) p0s2(1) p0(3)] = 8 + 4 + 4*15 = 72.  With texture uvs
@@ -217,3 +226,131 @@ def closest_hit_block(tri, uvc, pids, origins, dirs, hit, t_min: float,
         prim = torch.where(take, pick(pids), prim)
     return (torch.where(take, t_k, t_best), prim,
             torch.where(take, uk, u_best), torch.where(take, vk, v_best))
+
+
+def cast_ray_fans(scene: FanScene, origins, dirs, t_min: float = 0.0,
+                  max_leaves: int = 512, return_overflow: bool = False,
+                  fan_normals=None):
+    """Closest-hit trace of T fans × R rays sharing per-fan origins.
+
+    Args:
+        scene: FanScene (its rows go to the rays' device once).
+        origins: 3-tuple of [T] per-fan origins.
+        dirs: 3-tuple of [T, R] directions.
+        t_min: minimum hit distance.
+        max_leaves: per-fan candidate-leaf budget K; a fan whose cull keeps
+            more leaves is flagged (return_overflow) and traced over its
+            first K only.
+        fan_normals: optional 3-tuple of [T] hemisphere axes; leaves wholly
+            behind a fan's tangent plane are culled (exact when every
+            direction of the fan has n·d ≥ 0, as a bake texel's).
+    Returns:
+        RayHit of [T, R] (+ [T, R] overflow flags if requested).
+    """
+    t_fans, r = dirs[0].shape
+    dev = dirs[0].device
+    rows = scene.device_rows(dev)
+    l = rows.shape[0]
+    diam = float(scene.diameter)
+
+    # dense fan × leaf culling (swept point-beam + front half-space)
+    dmin = tuple(torch.amin(dirs[k], dim=1) for k in range(3))
+    dmax = tuple(torch.amax(dirs[k], dim=1) for k in range(3))
+    overlap = torch.ones((t_fans, l), dtype=torch.bool, device=dev)
+    front = torch.zeros((t_fans, l), dtype=torch.float32, device=dev)
+    for k in range(3):
+        lo_k = origins[k] + diam * torch.clamp_max(dmin[k], 0.0)
+        hi_k = origins[k] + diam * torch.clamp_min(dmax[k], 0.0)
+        overlap &= rows[None, :, k] <= hi_k[:, None]
+        overlap &= rows[None, :, 3 + k] >= lo_k[:, None]
+        r_lo = rows[None, :, k] - origins[k][:, None]
+        r_hi = rows[None, :, 3 + k] - origins[k][:, None]
+        cand = torch.maximum(
+            torch.maximum(r_lo * dmin[k][:, None], r_lo * dmax[k][:, None]),
+            torch.maximum(r_hi * dmin[k][:, None], r_hi * dmax[k][:, None]),
+        )
+        front = front + cand
+    overlap &= front >= 0.0
+    if fan_normals is not None:
+        # a leaf is reachable only if some AABB corner is on the hemisphere
+        # side: max over corners of (c - o)·n ≥ 0, separable per axis
+        plane = torch.zeros((t_fans, l), dtype=torch.float32, device=dev)
+        for k in range(3):
+            nk = fan_normals[k][:, None]
+            r_lo = rows[None, :, k] - origins[k][:, None]
+            r_hi = rows[None, :, 3 + k] - origins[k][:, None]
+            plane = plane + torch.maximum(r_lo * nk, r_hi * nk)
+        overlap &= plane >= 0.0
+
+    # lax.top_k of the 0/1 scores: the overlapping leaves first, each group
+    # in row order (a stable sort)
+    kk = min(max_leaves, l)
+    order = torch.sort(overlap.to(torch.int8), dim=1, descending=True,
+                       stable=True)
+    leaf_ids = order.indices[:, :kk]
+    valid_leaf = order.values[:, :kk] > 0
+    counts = overlap.sum(dim=1)
+
+    # the leaf loop: each fan's k-th leaf is a block of 4 triangles; a
+    # triangle that the reference masks (invalid leaf, slot ≥ count) gets
+    # a zero normal, so it is never accepted (|n·d| = 0)
+    irows = rows.view(torch.int32)
+    jj = torch.arange(4, device=dev)
+    o3 = tuple(c.reshape(t_fans, 1, 1) for c in origins)
+    d3 = tuple(c.reshape(t_fans, 1, r) for c in dirs)
+    hit = (torch.full((t_fans, 1, r), float("inf"), device=dev),
+           torch.full((t_fans, 1, r), -1, dtype=torch.int32, device=dev),
+           torch.zeros((t_fans, 1, r), device=dev),
+           torch.zeros((t_fans, 1, r), device=dev))
+    for k_idx in range(kk):
+        ids = leaf_ids[:, k_idx]
+        row = rows[ids]
+        lc = irows[ids, 6]
+        tri = row[:, _TRI_BASE:_TRI_BASE + 4 * _TRI_STRIDE].reshape(
+            t_fans, 4, _TRI_STRIDE)
+        use = valid_leaf[:, k_idx, None] & (jj[None, :] < lc[:, None])
+        tri = torch.cat([tri[..., :3] * use[..., None], tri[..., 3:]],
+                        dim=-1)
+        hit = closest_hit_block(tri, None, irows[ids, 8:12], o3, d3, hit,
+                                t_min, emit_uv=False)
+    t_best, prim, u_best, v_best = (a.reshape(t_fans, r) for a in hit)
+    out = RayHit(t=t_best, prim=prim, u=u_best, v=v_best)
+    if not return_overflow:
+        return out
+    over = (counts > kk)[:, None].expand(t_fans, r)
+    return out, over
+
+
+def cast_ray_fans_exact(scene: FanScene, bvh, origins, dirs,
+                        t_min: float = 0.0, max_leaves: int = 512,
+                        fan_normals=None) -> RayHit:
+    """Fan trace (cast_ray_fans) with the fans that overflow their leaf
+    budget re-traced exactly by the BVH traversal (one host sync a call).
+
+    Args:
+        bvh: ops.raycast.DeviceBVH of the same mesh.
+        the rest: as cast_ray_fans.
+    """
+    hit, over = cast_ray_fans(scene, origins, dirs, t_min=t_min,
+                              max_leaves=max_leaves, return_overflow=True,
+                              fan_normals=fan_normals)
+    idx = torch.nonzero(over[:, 0]).reshape(-1)
+    if idx.numel() == 0:
+        return hit
+    t_fans, r = dirs[0].shape
+    # the traversal gathers a row per ray and visit: bound a chunk's rays
+    chunk = max(1, (1 << 20) // r)
+    t_out, p_out, u_out, v_out = (a.clone() for a in
+                                  (hit.t, hit.prim, hit.u, hit.v))
+    for s in range(0, idx.numel(), chunk):
+        ii = idx[s:s + chunk]
+        m = ii.numel()
+        sub = cast_rays_soa(
+            bvh, tuple(origins[k][ii][:, None].expand(m, r)
+                       for k in range(3)),
+            tuple(dirs[k][ii] for k in range(3)), t_min=t_min)
+        t_out[ii] = sub.t
+        p_out[ii] = sub.prim
+        u_out[ii] = sub.u
+        v_out[ii] = sub.v
+    return RayHit(t=t_out, prim=p_out, u=u_out, v=v_out)

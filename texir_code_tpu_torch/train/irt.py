@@ -40,7 +40,7 @@ class IrrTextureRunner:
         from texir_code_tpu_torch.geometry import load_obj
         from texir_code_tpu_torch.geometry.bvh import build_bvh
         from texir_code_tpu_torch.geometry.occluders import extract_occluders
-        from texir_code_tpu_torch.models.tbl import build_tbl
+        from texir_code_tpu_torch.models.tbl import build_tbl_from_flat
         from texir_code_tpu_torch.models.tracer_irt import (
             IrradianceTextureBaker,
             bake_geometry_textures,
@@ -68,7 +68,9 @@ class IrrTextureRunner:
         tex = hdrio.read_hdr(
             self.path_mesh.replace("out1.obj", "hdr_texture.hdr"), flip=True
         )
-        self.tbl = build_tbl(self.mesh, tex, hdr_exposure, device=self.device)
+        fb = build_bvh(self.mesh.vertices, self.mesh.faces)
+        self.tbl = build_tbl_from_flat(fb, self.mesh, tex, hdr_exposure,
+                                       device=self.device)
 
         spp = conf.get_list("train.sample_light", default=[2048, 16])[0]
         # conf-tunable kernel-shape knobs with the JAX runner's defaults
@@ -89,7 +91,6 @@ class IrrTextureRunner:
         # triangles seeds per-ray t bounds (exact)
         proxy_k = conf.get_int("train.bake_proxy_k", default=0)
 
-        fb = build_bvh(self.mesh.vertices, self.mesh.faces)
         fan = FanScene.from_flat(fb, triangle_uvs=self.mesh.triangle_uvs())
         clusters = ClusterScene.from_fan(
             fan, lb=lb, dense=True, device=self.device

@@ -96,7 +96,13 @@ class MatTrainRunner:
         conf_path: Optional[str] = None,
         max_epochs: Optional[int] = None,
         device="cuda",
+        dataset=None,
     ):
+        """Args:
+            dataset: the views to train on and score (default: an
+                ImageCubeDerived of the conf's scan); a dataset with
+                `train_ids` trains on those views only (_train_indices).
+        """
         from texir_code_tpu_torch.geometry import load_obj
         from texir_code_tpu_torch.models.material import (
             MaterialModel,
@@ -125,8 +131,8 @@ class MatTrainRunner:
         self.pano_res = tuple(conf.get_list("train.pano_img_res",
                                             default=[256, 512]))
         hdr_exposure = conf.get_float("train.hdr_exposure", default=0.0)
-        self.dataset = ImageCubeDerived(path_mesh, resolution=self.pano_res,
-                                        hdr_exposure=hdr_exposure)
+        self.dataset = dataset or ImageCubeDerived(
+            path_mesh, resolution=self.pano_res, hdr_exposure=hdr_exposure)
 
         knobs = render_knobs_from_conf(conf)
         # the JAX runner's training defaults: stochastic-LOD + stochastic-
