@@ -10,7 +10,8 @@ triangles): export the scan, bake its IrrT, train its materials; on the
 apartment also the FanScene-only configuration (no ClusterScene: every ray
 against every leaf row, kernels B2/B3), the Mat step with the sampler's
 segment-sum backward (kernel S), the four testers, the BVH traversal and
-the quality run's path (the material-rendered export, IrrT, MatSyn).
+the quality run's path (the material-rendered export, IrrT, MatSyn), and
+the field stages (NIrF at full width, IRF, PIL).
 Phases (any failure exits non-zero; nothing is caught):
   1. device: torch's view of the card, and nvidia-smi's name and power limit;
   2. build: every CUDA kernel of the port from csrc/ (culled_walk,
@@ -103,11 +104,28 @@ Phases (any failure exits non-zero; nothing is caught):
  30. matsyn: IrrT at --irt_res 512 and `train --trainstage MatSyn
      --max_epochs 1` through the port's CLI on that export (B1
      shared_prim and per_ray_uv required): stage seconds, material and
-     novel-view metrics.
+     novel-view metrics;
+ 31. irrf-kernels (after 30, on the export of 8): B1 per_ray_prim on the
+     NIrF trace's rays, captured from the tracer's own call — one IRRF
+     training step's (16 points x 2048 hemisphere rays, one origin a row
+     of 2048, lb 8) and one validation batch's (512 pixels of the
+     512x1024 val pano x 2048) — against the plain walk, with times and
+     the bound;
+ 32. irrf-reference: one IRRF train step (full-width MLP) on the card
+     against the CPU from the same weights, points and draws;
+ 33. irrf: `train --trainstage IRRF --conf configs/irrf_synthetic.conf
+     --max_epochs 2` through the port's CLI (3 epochs of 64 steps, the
+     validation at 512x1024 x [32, 64]): stage seconds, ms a step, steps/s,
+     the validation's seconds and val_psnr / val_ssim, B1 launched once a
+     step and once a validation batch; one step under torch.profiler;
+ 34. irf: `--trainstage IRF --max_epochs 1`, validation at [64, 128] x
+     [16, 32];
+ 35. pil: `--trainstage PIL --max_epochs 1`, validation at 1024 points x
+     512 spp x 5 roughnesses.
 Kernel launch counts are zeroed just before each main-path run (5, 6, 9,
 10, 11, 12, 13, each tester of 14, the switch-on steps of 17, each run of
-19, 20, 21, 29, the MatSyn stage of 30) and read just after; every kernel
-mode of that run must have run.  Then a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
+19, 20, 21, 29, the MatSyn stage of 30, 33, 34, 35) and read just after;
+every kernel mode of that run must have run.  Then a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
 line.  Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
 """
@@ -180,6 +198,13 @@ BVH_EDGE_RAYS_MAX = 1960
 BVH_WALK_LEAKS_MAX = 982
 BVH_LEAKS_MAX = 8
 SYN_BAND = (65_408, 65_664)  # raster pixels of view 0 rendered on the CPU
+# the field stages (configs/irrf_synthetic.conf): NIrF at full width; the
+# GT trace walks B1 with per-ray origins and the exact radiance fetch
+IRRF_CONF = os.path.join("configs", "irrf_synthetic.conf")
+IRRF_EPOCHS = 2  # --max_epochs: the IRRF runner trains epochs 0..2
+IRRF_MODE = "per_ray_prim"
+IRRF_VAL_BATCH = 512  # pixels a validation batch (the JAX runner's)
+IRF_VAL = ("val.env_res=[64,128]", "train.val_sample_res=[16,32]")
 
 
 def log(msg=""):
@@ -771,6 +796,7 @@ def profile_once(torch, tag, label, fn, top=6):
         + (f"{max(0.0, 1 - busy / wall_ms):.3f}" if busy else "not measured"))
     for name, ms in sorted(kern.items(), key=lambda kv: -kv[1])[:top]:
         log(f"[{tag}]   {ms:9.3f} ms  {name[:90]}")
+    return wall_ms, kern, launches
 
 
 def phase_mat_profile(torch, path_mesh, tmp):
@@ -779,10 +805,7 @@ def phase_mat_profile(torch, path_mesh, tmp):
     from torch.profiler import ProfilerActivity, profile
 
     from texir_code_tpu_torch.config import _parse_value, parse_file
-    from texir_code_tpu_torch.train.material import (
-        MatTrainRunner,
-        adam_for_substage,
-    )
+    from texir_code_tpu_torch.train.material import MatTrainRunner
 
     conf_path, sets = _mat_conf(path_mesh, PANO)
     conf = parse_file(conf_path)
@@ -793,9 +816,7 @@ def phase_mat_profile(torch, path_mesh, tmp):
                             max_epochs=1)
     runner.build_masks()
     views, n_rooms = runner._stack_epoch_data([0])
-    for p in (runner.params.albedo, runner.params.roughness):
-        p.requires_grad_(True)
-    opt, sched = adam_for_substage(runner.params, runner.lr, 20, 0.8, 1)
+    opt, sched = mat_adam(runner)
 
     def step(it):
         return runner._step(2, views[0], n_rooms, it, opt, sched)
@@ -1172,6 +1193,17 @@ def mat_runner(torch, path_mesh, tmp, name):
                           max_epochs=1)
 
 
+def mat_adam(runner):
+    """The runner's atlases made trainable, and Adam over them with a
+    20-step staircase: (optimizer, scheduler)."""
+    from texir_code_tpu_torch.train.exp import adam_staircase
+
+    atlases = [runner.params.albedo, runner.params.roughness]
+    for p in atlases:
+        p.requires_grad_(True)
+    return adam_staircase(atlases, runner.lr, 20, 0.8, 1)
+
+
 def step_loss_grads(torch, model, params, mvp, pos, shift, gt, seg, room,
                     view, seg_weight_scale=1.0):
     """One stage-2 forward on a cached view + render_loss + backward:
@@ -1202,16 +1234,13 @@ def phase_fan_mat(torch, dev, path_mesh, tmp, syn):
     gradient rel L2 <= 1e-3 (the Mat correctness row)."""
     from texir_code_tpu_torch.ops.pallas_culled import culled_walk_cuda
     from texir_code_tpu_torch.ops.pallas_fan import fan_stream_cuda
-    from texir_code_tpu_torch.train.material import adam_for_substage
 
     runner = mat_runner(torch, path_mesh, tmp, "exps_fan_mat")
     model = runner.model
     clusters = model.cluster_scene
     model.cluster_scene = None
     runner.build_masks()
-    for p in (runner.params.albedo, runner.params.roughness):
-        p.requires_grad_(True)
-    opt, sched = adam_for_substage(runner.params, runner.lr, 20, 0.8, 1)
+    opt, sched = mat_adam(runner)
     fan_stream_cuda.launches.clear()
     culled_walk_cuda.launches.clear()
     torch.cuda.synchronize()
@@ -1810,10 +1839,7 @@ def phase_building_profile(torch, dev, b, path_mesh, tmp):
 
     from texir_code_tpu_torch.config import _parse_value, parse_file
     from texir_code_tpu_torch.ops.pallas_culled import cull_blocks
-    from texir_code_tpu_torch.train.material import (
-        MatTrainRunner,
-        adam_for_substage,
-    )
+    from texir_code_tpu_torch.train.material import MatTrainRunner
 
     def profiled(label, fn):
         fn()
@@ -1871,9 +1897,7 @@ def phase_building_profile(torch, dev, b, path_mesh, tmp):
                             max_epochs=1)
     runner.build_masks()
     views, n_rooms = runner._stack_epoch_data([0])
-    for p in (runner.params.albedo, runner.params.roughness):
-        p.requires_grad_(True)
-    opt, sched = adam_for_substage(runner.params, runner.lr, 20, 0.8, 1)
+    opt, sched = mat_adam(runner)
     model = runner.model
     proxy = b["proxies"][MAT_PROXY_K]
     it = [0]
@@ -2050,15 +2074,12 @@ def phase_mat_segsum(torch, dev, path_mesh, tmp, syn):
 
     from texir_code_tpu_torch.ops import texture
     from texir_code_tpu_torch.ops.scatter_acc import scatter_accumulate_cuda
-    from texir_code_tpu_torch.train.material import adam_for_substage
 
     runner = mat_runner(torch, path_mesh, tmp, "exps_segsum")
     model = runner.model
     runner.build_masks()
     views, n_rooms = runner._stack_epoch_data([0])
-    for p in (runner.params.albedo, runner.params.roughness):
-        p.requires_grad_(True)
-    opt, sched = adam_for_substage(runner.params, runner.lr, 20, 0.8, 1)
+    opt, sched = mat_adam(runner)
     rng = np.random.default_rng(15)
     pos, mvp = bench_camera(syn)
     res = PANO[1] // 4
@@ -2544,6 +2565,269 @@ def phase_matsyn(torch, path_mesh, tmp):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the field stages: NIrF (IRRF) at full width, IRF and PIL
+# ---------------------------------------------------------------------------
+
+
+def irrf_conf(path_mesh):
+    """configs/irrf_synthetic.conf on the export."""
+    from texir_code_tpu_torch.config import parse_file
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    conf = parse_file(os.path.join(here, IRRF_CONF))
+    conf.put("train.path_mesh_open3d", path_mesh)
+    return conf
+
+
+def field_runner(cls, path_mesh, exps, device="cuda"):
+    """A field-stage runner with configs/irrf_synthetic.conf on the
+    export."""
+    return cls(irrf_conf(path_mesh), exps_root=exps, device=device)
+
+
+_WALK_ARGS = ("count", "cand", "dist", "t_cap", "origins", "dx", "dy", "dz",
+              "rows3", "prims3", "er", "t_min", "emit_uv", "emit_prim",
+              "per_ray", "seed")
+
+
+def capture_walks(torch, fn):
+    """The culled-walk arguments of every launch fn() makes, as the
+    dicts check_walk takes (the launches themselves run as usual)."""
+    from texir_code_tpu_torch.ops import pallas_culled
+
+    launch = pallas_culled.culled_walk_cuda
+    seen = []
+
+    def record(*args):
+        seen.append(dict(zip(_WALK_ARGS, args)))
+        return launch(*args)
+
+    record.launches = launch.launches  # the wrapper counts by its name
+    pallas_culled.culled_walk_cuda = record
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        pallas_culled.culled_walk_cuda = launch
+    return seen
+
+
+def irrf_batch(torch, runner, points, normals, start, n):
+    """Points, normals and global ids [start, start + n) on the runner's
+    device."""
+    pts = runner._tensor(points[start:start + n])
+    return (pts, runner._tensor(normals[start:start + n]),
+            torch.arange(start, start + len(pts), device=runner.device))
+
+
+def phase_irrf_kernels(torch, path_mesh, tmp):
+    """B1 on the IRRF trace's rays exactly as the runner builds them: one
+    training step's (16 points x 2048 directions, each point's rays one
+    row of 2048 with one origin) and one validation batch's (512 pixels of
+    the val pano x val_sample_res), captured from the tracer's own call
+    and held against the plain walk."""
+    from texir_code_tpu_torch.data.datasets import ImageMeshPoint
+    from texir_code_tpu_torch.train.irrf import IRRFTrainRunner, step_seed
+
+    r = field_runner(IRRFTrainRunner, path_mesh,
+                     os.path.join(tmp, "irrf-kernels"))
+    ds = r.train_dataset
+    pts, nrm, ids = irrf_batch(torch, r, ds.points, ds.normals, 0,
+                               r.batch_size)
+    rows = {}
+    (inp,) = capture_walks(torch, lambda: r.model.trace_gt(
+        pts, nrm, r.env_res, step_seed(0), ids))
+    rows["irrf-step"], _ = check_walk(
+        torch, f"IRRF step, {r.batch_size} points x "
+        f"{r.env_res[0] * r.env_res[1]}", inp,
+        name=f"culled_walk[{IRRF_MODE}]@irrf-step")
+    t0 = time.time()
+    val = ImageMeshPoint(path_mesh, env_res=r.val_res, device="cuda")
+    log(f"[irrf-kernels] val pano G-buffer {r.val_res[0]}x{r.val_res[1]} "
+        f"(BVH) in {time.time() - t0:.2f} s, {val.mask.mean():.4f} hit")
+    j = len(val) // IRRF_VAL_BATCH // 2  # a batch from the pano's middle
+    pts, nrm, ids = irrf_batch(torch, r, val.points, val.normals,
+                               j * IRRF_VAL_BATCH, IRRF_VAL_BATCH)
+    (inp,) = capture_walks(torch, lambda: r.model.trace_gt(
+        pts, nrm, r.val_sample_res, step_seed(j), ids))
+    rows["irrf-val"], _ = check_walk(
+        torch, f"IRRF validation batch {j}, {IRRF_VAL_BATCH} pixels x "
+        f"{r.val_sample_res[0] * r.val_sample_res[1]}", inp, plain_reps=0,
+        name=f"culled_walk[{IRRF_MODE}]@irrf-val")
+    for row in rows.values():
+        if not row["name"].startswith(f"culled_walk[{IRRF_MODE}]"):
+            raise SystemExit(f"[irrf-kernels] unexpected mode {row['name']}")
+    return rows
+
+
+def phase_irrf_reference(torch, path_mesh, tmp):
+    """One IRRF train step (GT trace, MLP, loss, backward) on the card
+    against the CPU from the same weights, points and draws: GT within rel
+    1e-4, loss within rel 1e-5, each parameter's gradient within relative
+    L2 1e-4."""
+    from texir_code_tpu_torch.train.irrf import IRRFTrainRunner, step_seed
+
+    out = {}
+    state = None
+    for dev in ("cuda", "cpu"):
+        r = field_runner(IRRFTrainRunner, path_mesh,
+                         os.path.join(tmp, "irrf-ref-" + dev), device=dev)
+        if state is None:
+            state = {k: v.cpu() for k, v in
+                     r.model.network.state_dict().items()}
+        else:
+            r.model.network.load_state_dict(state)
+        ds = r.train_dataset
+        pts, nrm, ids = irrf_batch(torch, r, ds.points, ds.normals, 0,
+                                   r.batch_size)
+        gt = r.model.trace_gt(pts, nrm, r.env_res, step_seed(0), ids)
+        loss = r._loss(pts, nrm, step_seed(0), ids)
+        loss.backward()
+        out[dev] = (gt.cpu().numpy(), float(loss.detach()), {
+            k: p.grad.cpu().numpy()
+            for k, p in r.model.network.named_parameters()})
+    (gg, lg, dg), (gc, lc, dc) = out["cuda"], out["cpu"]
+    gt_rel = float(np.max(np.abs(gg - gc) / np.maximum(np.abs(gc), 1e-6)))
+    rel = abs(lg - lc) / abs(lc)
+    grad = max(np.linalg.norm(dg[k] - dc[k]) / np.linalg.norm(dc[k])
+               for k in dc)
+    log(f"[irrf-reference] IRRF step card vs cpu ({len(gg)} points, "
+        f"{IRRF_MODE} walk vs plain walk): GT max rel {gt_rel:.3g}; loss "
+        f"{lg:.7f} vs {lc:.7f} (rel {rel:.3g}); gradient rel L2 max over "
+        f"{len(dc)} tensors {grad:.3g}")
+    if not (gt_rel <= 1e-4 and rel <= 1e-5 and grad <= 1e-4):
+        raise SystemExit("the IRRF step on the card disagrees with the CPU")
+
+
+def _field_timings(exps, stage):
+    import glob
+
+    (path,) = glob.glob(os.path.join(exps, f"{stage}-default", "*",
+                                     "timings.json"))
+    with open(path) as f:
+        return json.load(f)
+
+
+def run_field_cli(torch, stage, path_mesh, exps, epochs, sets=()):
+    """`train --trainstage <stage>` through the port's CLI on the export:
+    (wall seconds, timings.json, culled-walk launches)."""
+    from texir_code_tpu_torch import cli
+    from texir_code_tpu_torch.ops.pallas_culled import culled_walk_cuda
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = ["train", "--conf", os.path.join(here, IRRF_CONF),
+            "--trainstage", stage, "--max_epochs", str(epochs),
+            "--exps_folder", exps, "--set",
+            f"train.path_mesh_open3d={path_mesh}"]
+    for kv in sets:
+        argv += ["--set", kv]
+    culled_walk_cuda.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(culled_walk_cuda.launches)
+    tm = _field_timings(exps, stage)
+    log(f"[{stage.lower()}] {stage} via cli, --max_epochs {epochs}: "
+        f"{dt:.2f} s with set-up (set-up {tm['setup_s']:.2f} s); "
+        f"{tm['steps']} steps in {tm['train_s']:.2f} s = "
+        f"{tm['ms_per_step']:.3f} ms a step, {tm['steps_per_s']:.2f} "
+        f"steps/s; last loss {tm['last_loss']:.6f}; culled_walk launches "
+        f"{launches}")
+    vals = [tm["last_loss"]] + list(tm["val_metrics"].values())
+    if not np.isfinite(vals).all() or "val_psnr" not in tm["val_metrics"]:
+        raise SystemExit(f"[{stage.lower()}] non-finite loss or missing "
+                         f"val metrics: {tm}")
+    _need_modes(stage.lower(), launches, (IRRF_MODE,))
+    return dt, tm, launches
+
+
+def profile_irrf_step(torch, path_mesh, tmp):
+    """One IRRF train step under torch.profiler: its launches, B1's and
+    the MLP's device ms, the idle share."""
+    from texir_code_tpu_torch.train.irrf import IRRFTrainRunner
+
+    r = field_runner(IRRFTrainRunner, path_mesh,
+                     os.path.join(tmp, "irrf-profile"))
+    ds = r.train_dataset
+    pts, nrm, ids = irrf_batch(torch, r, ds.points, ds.normals, 0,
+                               r.batch_size)
+    it = iter(range(10 ** 6))
+    wall, kern, launches = profile_once(
+        torch, "irrf", "one IRRF train step (16 points x 2048 rays)",
+        lambda: r.train_step(pts, nrm, next(it), ids), top=8)
+    # the optimizer's profiler range spans kernels counted on their own
+    ranges = {k for k in kern if k.startswith("Optimizer.")}
+    walk = sum(ms for k, ms in kern.items() if "culled_walk" in k)
+    mlp = sum(ms for k, ms in kern.items() if "gemm" in k.lower())
+    busy = sum(ms for k, ms in kern.items() if k not in ranges)
+    log(f"[irrf]   step: {launches - len(ranges)} launches, B1 {walk:.4f} "
+        f"ms, the MLP's matrix products {mlp:.4f} ms, the rest "
+        f"{busy - walk - mlp:.4f} ms on the card (the optimizer's range, "
+        f"{sum(kern[k] for k in ranges):.4f} ms, not added); idle share "
+        f"{max(0.0, 1 - busy / wall):.3f} of {wall:.3f} ms")
+    if walk <= 0:
+        raise SystemExit("[irrf] the profiled step ran no culled walk")
+
+
+def phase_fields(torch, path_mesh, tmp):
+    """[irrf] the NIrF stage through the CLI at full width with its
+    validation, one profiled step; [irf] and [pil] for an epoch each.
+    Returns the IRRF run's B1 launches: (training steps, validation)."""
+    from texir_code_tpu_torch.ops.pallas_culled import culled_walk_cuda
+    from texir_code_tpu_torch.train.irrf import IRRFTrainRunner
+
+    # the validation's launches on their own: the counter across the
+    # first call of val_gt (the one that traces; later calls reuse it)
+    val_gt, val_launches = IRRFTrainRunner.val_gt, []
+
+    def counted_val_gt(runner):
+        first = runner._val_gt is None
+        before = culled_walk_cuda.launches[IRRF_MODE]
+        out = val_gt(runner)
+        if first:
+            val_launches.append(culled_walk_cuda.launches[IRRF_MODE]
+                                - before)
+        return out
+
+    exps = os.path.join(tmp, "field-exps")
+    IRRFTrainRunner.val_gt = counted_val_gt
+    try:
+        _, tm, launches = run_field_cli(torch, "IRRF", path_mesh, exps,
+                                        IRRF_EPOCHS)
+    finally:
+        IRRFTrainRunner.val_gt = val_gt
+    vm = tm["val_metrics"]
+    conf = irrf_conf(path_mesh)
+    h, w = conf.get_list("val.env_res")
+    sh, sw = conf.get_list("train.val_sample_res")
+    val_batches = -(-h * w // IRRF_VAL_BATCH)
+    log(f"[irrf]   validation at {h}x{w} x [{sh}, {sw}]: pano G-buffer "
+        f"{tm['val_dataset_s']:.2f} s, GT trace {tm['val_gt_s']:.2f} s "
+        f"({val_batches} batches of {IRRF_VAL_BATCH * sh * sw} rays), "
+        f"prediction + metrics {tm['val_s']:.2f} s; val_psnr "
+        f"{vm['val_psnr']:.4f}, val_ssim {vm['val_ssim']:.4f} "
+        f"({IRRF_EPOCHS + 1} epochs, not converged)")
+    if len(val_launches) != 1:
+        raise SystemExit(f"[irrf] the validation GT was traced "
+                         f"{len(val_launches)} times, expected once")
+    val_n = val_launches[0]
+    step_n = launches[IRRF_MODE] - val_n
+    log(f"[irrf]   {IRRF_MODE} launches: {step_n} in training, {val_n} in "
+        f"the validation's GT trace")
+    if step_n != tm["steps"] or val_n != val_batches:
+        raise SystemExit(
+            f"[irrf] {step_n} + {val_n} {IRRF_MODE} launches (training + "
+            f"validation), expected one a step and one a validation batch "
+            f"({tm['steps']} + {val_batches})")
+    profile_irrf_step(torch, path_mesh, tmp)
+    run_field_cli(torch, "IRF", path_mesh, exps, 1, IRF_VAL)
+    run_field_cli(torch, "PIL", path_mesh, exps, 1)
+    return step_n, val_n
+
+
 def main():
     import torch
 
@@ -2593,6 +2877,12 @@ def main():
                                                         tmp, syn)
         syn_path, _, _ = phase_syn_export(torch, syn, tmp)
         phase_matsyn(torch, syn_path, tmp)
+        irrf_rows = phase_irrf_kernels(torch, path_mesh, tmp)
+        phase_irrf_reference(torch, path_mesh, tmp)
+        (irrf_rows["irrf-step"]["launches"],
+         irrf_rows["irrf-val"]["launches"]) = phase_fields(torch, path_mesh,
+                                                           tmp)
+        log(f"[time] field stages done at {time.time() - t_start:.1f} s")
         log(f"[time] apartment path done at {time.time() - t_start:.1f} s")
         bpath = phase_building_export(torch, b["syn"], tmp)
         launches = phase_building_proxy(torch, b["syn"], bpath, tmp)
@@ -2616,7 +2906,8 @@ def main():
         "shared_uv_seeded", "per_ray_uv@building", "shared_prim_seeded",
         "per_ray_uv_seeded", "per_ray_prim", "shared_uv_visits")]
         + [fan_rows[m] for m in FAN_MODES]
-        + [s_rows["unsorted"], s_rows["sorted"]]}))
+        + [s_rows["unsorted"], s_rows["sorted"]]
+        + [irrf_rows["irrf-step"], irrf_rows["irrf-val"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
     return 0

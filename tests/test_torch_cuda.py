@@ -8,6 +8,8 @@ imports jax) is bypassed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1178,3 +1180,87 @@ def test_bvh_traversal_on_card_matches_brute(compact):
     tie = card.prim.cpu() != brute.prim
     assert (rel[tie[hit]] <= 1e-6).all()
     assert tie.float().mean() <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# the field stages: the NIrF trace goes through B1 per_ray_prim on the card
+# ---------------------------------------------------------------------------
+
+IRRF_CONF = os.path.join(os.path.dirname(__file__), "..", "configs",
+                         "irrf_synthetic.conf")
+FIELD_SETS = {"train.samples_point_mesh": 64, "train.env_res": [8, 16],
+              "val.env_res": [16, 32], "train.val_sample_res": [4, 8],
+              "val.pil_points": 64, "val.pil_spp": 32}
+
+
+@pytest.fixture(scope="module")
+def field_scan(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the walk kernel has no CPU mode)")
+    from texir_code_tpu_torch.data.export import export_reference_layout
+    from texir_code_tpu_torch.data.synthetic import make_scene
+
+    out = str(tmp_path_factory.mktemp("field_scan"))
+    return export_reference_layout(make_scene(atlas_res=48), out, n_views=1,
+                                   pano_res=(32, 64), device="cpu")
+
+
+@pytest.mark.cuda
+def test_irrf_step_card_matches_cpu(field_scan, tmp_path):
+    """One IRRF step (full-width network) on the card against the CPU from
+    the same weights, points and draws: GT within rel 1e-4, loss within
+    rel 1e-5, gradients within relative L2 1e-4; the card's trace is one
+    B1 per_ray_prim launch."""
+    from texir_code_tpu_torch.config import parse_file
+    from texir_code_tpu_torch.train.irrf import IRRFTrainRunner, step_seed
+
+    conf = parse_file(IRRF_CONF)
+    conf.put("train.path_mesh_open3d", field_scan)
+    out, state = {}, None
+    for dev in ("cuda", "cpu"):
+        r = IRRFTrainRunner(conf, exps_root=str(tmp_path / dev), device=dev)
+        if state is None:
+            state = {k: v.cpu() for k, v in
+                     r.model.network.state_dict().items()}
+        else:
+            r.model.network.load_state_dict(state)
+        pts = r._tensor(r.train_dataset.points[:16])
+        nrm = r._tensor(r.train_dataset.normals[:16])
+        ids = torch.arange(16, device=r.device)
+        before = T.culled_walk_cuda.launches["per_ray_prim"]
+        gt = r.model.trace_gt(pts, nrm, r.env_res, step_seed(0), ids)
+        if dev == "cuda":
+            assert T.culled_walk_cuda.launches["per_ray_prim"] == before + 1
+        loss = r._loss(pts, nrm, step_seed(0), ids)
+        loss.backward()
+        out[dev] = (gt.cpu().numpy(), float(loss.detach()), [
+            p.grad.cpu().numpy() for p in r.model.network.parameters()])
+    (gg, lg, dg), (gc, lc, dc) = out["cuda"], out["cpu"]
+    assert (np.abs(gg - gc) <= 1e-4 * np.maximum(np.abs(gc), 1e-6)).all()
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(dg, dc):
+        assert np.linalg.norm(a - b) <= 1e-4 * np.linalg.norm(b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["IRRF", "IRF", "PIL"])
+def test_field_stage_cli_on_card(field_scan, tmp_path, stage):
+    """Each field stage through the CLI on the card (no --device) at a
+    small size: finite loss, its val metrics, B1 per_ray_prim launched."""
+    import json
+
+    from texir_code_tpu_torch import cli
+
+    argv = ["train", "--conf", IRRF_CONF, "--trainstage", stage,
+            "--max_epochs", "1", "--exps_folder", str(tmp_path), "--set",
+            f"train.path_mesh_open3d={field_scan}"]
+    for k, v in FIELD_SETS.items():
+        argv += ["--set", f"{k}={v}"]
+    T.culled_walk_cuda.launches.clear()
+    assert cli.main(argv) == 0
+    assert T.culled_walk_cuda.launches["per_ray_prim"] > 0
+    (root,) = [r for r, _, f in os.walk(tmp_path) if "timings.json" in f]
+    with open(os.path.join(root, "timings.json")) as f:
+        tm = json.load(f)
+    assert np.isfinite(tm["last_loss"]) and tm["steps"] > 0
+    assert np.isfinite(tm["val_metrics"]["val_psnr"])

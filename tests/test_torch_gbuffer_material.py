@@ -39,7 +39,7 @@ from texir_code_tpu_torch.models import losses as TL
 from texir_code_tpu_torch.models.material import MaterialModel as TMat
 from texir_code_tpu_torch.models.material import clamp_material_params as t_clamp
 from texir_code_tpu_torch.ops import gbuffer as TG
-from texir_code_tpu_torch.train.material import adam_for_substage
+from texir_code_tpu_torch.train.exp import adam_staircase
 
 torch.set_num_threads(2)  # six test workers share the host's cores
 
@@ -274,8 +274,8 @@ def test_adam_and_clamp_match_optax(setup):
     pj = _jparams(s)
     state = opt.init(pj)
     pt = _tparams(s, grad=True)
-    topt, tsched = adam_for_substage(pt, lr, sched_step, factor,
-                                     steps_per_epoch)
+    topt, tsched = adam_staircase([pt.albedo, pt.roughness], lr, sched_step,
+                                  factor, steps_per_epoch)
     for ga, gr in grads:
         upd, state = opt.update(JParams(jnp.asarray(ga), jnp.asarray(gr)),
                                 state)

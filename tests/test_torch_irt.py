@@ -214,8 +214,8 @@ def test_cli_irrt_end_to_end_cpu(apartment, tmp_path):
 
 
 def test_cli_unported_stage_names_roadmap(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue A item 13"):
-        cli.main(["train", "--conf", _conf(), "--trainstage", "IRRF"])
+    with pytest.raises(SystemExit, match="ROADMAP.md queue A item 14"):
+        cli.main(["train", "--conf", _conf(), "--trainstage", "MatInv"])
 
 
 def test_runner_unported_knob_raises(apartment, tmp_path):

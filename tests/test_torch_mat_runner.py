@@ -11,7 +11,9 @@ scan (`make_scene(atlas_res=48)`, 2 views, pano 32×64, 32² atlases).
   * The runner's losses follow the JAX runner's through the whole
     schedule (mask pass, substages 0/1/2 with fresh Adam): both draw the
     JAX runner's own uniforms (injected into the port), both fetch
-    radiance exactly; the stage-2 losses agree within 1e-3 relative.
+    radiance exactly; the stage-2 losses agree within 1e-3 relative, the
+    final atlases within 1e-4 on every texel, and each seg class's
+    roughness spread within 1e-5.
 """
 
 import os
@@ -324,3 +326,20 @@ def test_runner_losses_follow_jax(jax_data, tmp_path, capsys):
         a, b = _losses(out["jax"], stage), _losses(out["port"], stage)
         assert len(a) == len(b) == 2
         np.testing.assert_allclose(b, a, rtol=rtol, err_msg=f"stage {stage}")
+    # the final atlases, texel by texel (read: albedo within 1.1e-5,
+    # roughness within 1.6e-6), and so each seg class's roughness spread
+    for name in ("albedo", "roughness"):
+        a = np.asarray(getattr(jr.params, name))
+        b = getattr(tr.params, name).detach().numpy()
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-4, err_msg=name)
+    from texir_code_tpu_torch.models.tracer_irt import bake_geometry_textures
+
+    scene = t_make_scene(atlas_res=48)
+    idx = np.arange(32) * 48 // 32
+    seg = scene.seg_texture[idx][:, idx]
+    valid = bake_geometry_textures(scene.mesh, 32).valid
+    a = np.asarray(jr.params.roughness)[..., 0]
+    b = tr.params.roughness.detach().numpy()[..., 0]
+    for c in np.unique(seg[valid]):
+        m = valid & (seg == c)
+        assert abs(b[m].std() - a[m].std()) < 1e-5, c

@@ -2,9 +2,9 @@
 
 Train (reference trainer/exp_runner.py):
     python -m texir_code_tpu_torch.cli train --conf configs/x.conf \
-        --trainstage {IrrT,Mat,MatSyn} [--irt_res 1024] [--max_epochs E] \
-        [--is_continue [--timestamp T]] [--set KEY=VAL ...] \
-        [--device cuda|cpu]
+        --trainstage {IrrT,Mat,MatSyn,IRRF,IRF,PIL} [--irt_res 1024] \
+        [--max_epochs E] [--is_continue [--timestamp T]] \
+        [--set KEY=VAL ...] [--device cuda|cpu]
 
 Test (reference tester/exp_runner.py):
     python -m texir_code_tpu_torch.cli test --conf configs/x.conf \
@@ -16,11 +16,16 @@ Test (reference tester/exp_runner.py):
 Demo (no dataset needed — exports a synthetic scan):
     python -m texir_code_tpu_torch.cli demo --out /tmp/demo [--device cpu]
 
-Stages of the JAX CLI that are not ported yet, and the relighting
-tester's path-traced mode, exit with an error naming the ROADMAP.md item
-that will port them.  The CLI runs float32 matrix
-products and convolutions in full fp32 on the card (TF32 off): the SSIM
-blur of the re-render metrics cancels catastrophically at lower precision.
+The train stages: IrrT (the irradiance-texture bake), Mat and MatSyn (the
+SVBRDF atlases; MatSyn adds the GT-material and novel-view metrics), and
+the field stages IRRF (the neural irradiance field, NIrF), IRF (the
+view-dependent incident-radiance field) and PIL (the pre-integrated
+lighting field).  Stages of the JAX CLI that are not ported yet (the
+baseline heads), and the relighting tester's path-traced mode, exit with
+an error naming the ROADMAP.md item that will port them.  The CLI runs
+float32 matrix products and convolutions in full fp32 on the card (TF32
+off): the SSIM blur of the re-render metrics cancels catastrophically at
+lower precision, and the field MLPs stay in fp32 as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,17 +38,12 @@ import torch
 from texir_code_tpu_torch.config import _parse_value, parse_file
 
 # stages of the JAX CLI that are not ported yet → their ROADMAP.md item
-_NOT_PORTED = {
-    "IRRF": "queue A item 13 (fields + field stages)",
-    "IRF": "queue A item 13 (fields + field stages)",
-    "PIL": "queue A item 13 (fields + field stages)",
-}
 _HEADS = (
     "MatInv", "Inv", "MatNeilf", "Neilf", "MatRec", "RecMLP",
     "MatInvSyn", "InvSyn", "MatNeilfSyn", "NeilfSyn", "MatRecSyn",
     "RecMLPSyn",
 )
-_NOT_PORTED.update({h: "queue A item 14 (baseline heads)" for h in _HEADS})
+_NOT_PORTED = {h: "queue A item 14 (baseline heads)" for h in _HEADS}
 
 
 def _irrt(conf, args):
@@ -76,7 +76,25 @@ def _mat_syn(conf, args):
     ).run()
 
 
-TRAIN_STAGES = {"IrrT": _irrt, "Mat": _mat, "MatSyn": _mat_syn}
+def _field_stage(conf, args):
+    from texir_code_tpu_torch.train.irf_pil import (
+        IRFTrainRunner,
+        PILTrainRunner,
+    )
+    from texir_code_tpu_torch.train.irrf import IRRFTrainRunner
+
+    cls = {"IRRF": IRRFTrainRunner, "IRF": IRFTrainRunner,
+           "PIL": PILTrainRunner}[args.trainstage]
+    return cls(
+        conf, expname=args.expname, exps_root=args.exps_folder,
+        is_continue=args.is_continue, timestamp=args.timestamp,
+        conf_path=args.conf, max_epochs=args.max_epochs, device=args.device,
+    ).run()
+
+
+TRAIN_STAGES = {"IrrT": _irrt, "Mat": _mat, "MatSyn": _mat_syn,
+                "IRRF": _field_stage, "IRF": _field_stage,
+                "PIL": _field_stage}
 
 
 def _tester(cls, conf, args):

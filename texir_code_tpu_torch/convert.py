@@ -1,7 +1,7 @@
 """Turn the JAX package's arrays (as numpy) into the port's objects.
 
 The bake's state is the packed scene; the Mat stage's is the mesh and two
-learned atlases.  These converters let a caller hand the very arrays the
+learned atlases; a field stage's is its network's weights.  These converters let a caller hand the very arrays the
 JAX package built (after `np.asarray`) to the port, so both packages run
 on the same scene and weights; the port's own packing is checked
 separately for equality with the JAX one.
@@ -94,3 +94,28 @@ def mesh_from_numpy(vertices, faces, uvs=None, uv_faces=None,
         uvs=arr(uvs, np.float32), uv_faces=arr(uv_faces, np.int32),
         vertex_normals=arr(vertex_normals, np.float32),
     )
+
+
+def field_params_from_flax(params, module: torch.nn.Module) -> dict:
+    """The state dict of a `models.fields` network from a flax params tree
+    (numpy arrays, with or without its top "params" level): flax's
+    `Dense_i` {kernel [in, out], bias [out]} becomes `layers.i`
+    {weight [out, in], bias [out]}.  Shapes are checked against `module`;
+    load the result with `module.load_state_dict`."""
+    tree = params.get("params", params)
+    want = module.state_dict()
+    n = len(module.layers)
+    names = sorted(tree, key=lambda k: int(k.split("_")[-1]))
+    if names != [f"Dense_{i}" for i in range(n)]:
+        raise ValueError(f"expected Dense_0..Dense_{n - 1}, got {names}")
+    out = {}
+    for i, name in enumerate(names):
+        for key, val in (("weight", np.asarray(tree[name]["kernel"]).T),
+                         ("bias", np.asarray(tree[name]["bias"]))):
+            ref = want[f"layers.{i}.{key}"]
+            if tuple(val.shape) != tuple(ref.shape):
+                raise ValueError(f"{name}.{key}: shape {val.shape}, the "
+                                 f"module has {tuple(ref.shape)}")
+            out[f"layers.{i}.{key}"] = torch.from_numpy(
+                np.array(val, np.float32)).to(ref.device)
+    return out

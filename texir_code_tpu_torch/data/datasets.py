@@ -1,7 +1,7 @@
-"""Datasets over the reference's scan-data layout (the Mat stage's input).
+"""Datasets over the reference's scan-data layout.
 
 The port of the JAX package's `data/datasets.py` for the classes the Mat
-stage and the testers read:
+stage, the testers and the field stages read:
 
     <root>/mesh/out1.obj (+hdr_texture.hdr, irt.hdr)   mesh + atlases
     <root>/info/aligned.txt                  view ids, one per line
@@ -14,7 +14,11 @@ stage and the testers read:
   * ImageCubeDerived — cube-face stacks + per-face MVPs (reference
     datasets/dataset.py:352-549);
   * ImageCubeSyn — + GT materials + the held-out novel split (:669-893);
-  * ImageCubeNovel — the novel-view tester's dolly trajectory (:552-666).
+  * ImageCubeNovel — the novel-view tester's dolly trajectory (:552-666);
+  * MeshPoint — uniform surface points resampled every epoch, the field
+    stages' training set (:39-93);
+  * ImageMeshPoint — one view's pano G-buffer, the NIrF validation set
+    (:96-238).
 
 No OpenCV: the erosion, Sobel gradient and nearest resize are scipy/numpy
 with cv2's border rules (erosion: outside = the maximum value; Sobel:
@@ -57,6 +61,99 @@ def read_extrinsics(root: str) -> np.ndarray:
         lines = [ln.strip() for ln in f if ln.strip()]
     rows = [list(map(float, ln.split())) for ln in lines[1:]]
     return np.asarray(rows, np.float32).reshape(-1, 4, 4)
+
+
+class MeshPoint:
+    """Uniform surface points, resampled every epoch (reference :39-93).
+    numpy's `default_rng(seed)` and `Mesh.sample_surface` draw them, as in
+    the JAX package: the same seed gives the same points."""
+
+    def __init__(self, path_mesh: str, num_sample: int = 1024,
+                 offset: float = 1e-2, seed: int = 666):
+        from texir_code_tpu_torch.geometry import load_obj
+
+        self.mesh = load_obj(path_mesh)
+        self.num_sample = num_sample
+        self.offset = offset
+        self._rng = np.random.default_rng(seed)
+        self.aabb = self.mesh.aabb()
+        self.points = np.zeros((0, 3), np.float32)
+        self.normals = np.zeros((0, 3), np.float32)
+        self.change_points()
+
+    def change_points(self) -> None:
+        """Resample the point set (reference :80-81, once an epoch)."""
+        pts, nrm = self.mesh.sample_surface(self.num_sample, self._rng)
+        self.points = pts + self.offset * nrm
+        self.normals = nrm
+
+    def __len__(self) -> int:
+        return self.num_sample
+
+    def __getitem__(self, idx) -> Dict[str, np.ndarray]:
+        return {"points": self.points[idx], "normals": self.normals[idx]}
+
+    def batches(self, batch_size: int):
+        for s in range(0, self.num_sample, batch_size):
+            sl = slice(s, s + batch_size)
+            yield {"points": self.points[sl], "normals": self.normals[sl]}
+
+
+class ImageMeshPoint:
+    """Pano G-buffer (position + normal) of one fixed view, the NIrF
+    validation set (reference :96-238 renders it with pyredner; here the
+    BVH traversal casts the pano's rays at t_min 1e-5).  Pixels that hit
+    nothing get zero points and normals, and `mask` False."""
+
+    def __init__(self, path_mesh: str, env_res: Tuple[int, int] = (512, 1024),
+                 view_index: int = 0, offset: float = 1e-2, device="cuda"):
+        from texir_code_tpu_torch.device import resolve_device
+        from texir_code_tpu_torch.geometry import build_bvh, load_obj
+        from texir_code_tpu_torch.ops.gbuffer import (
+            DeviceMesh,
+            interpolate_attributes,
+        )
+        from texir_code_tpu_torch.ops.raycast import DeviceBVH, cast_rays
+
+        dev = resolve_device(device)
+        self.env_res = tuple(env_res)
+        mesh = load_obj(path_mesh)
+        ext = read_extrinsics(_root_from_mesh(path_mesh))[view_index]
+        cam = ext[0:3, 3]
+        h, w = self.env_res
+        theta, phi = np.meshgrid(
+            np.linspace(-np.pi, np.pi, w, dtype=np.float32),
+            np.linspace(0.5 * np.pi, -0.5 * np.pi, h, dtype=np.float32),
+        )
+        dirs = np.stack(
+            [np.cos(phi) * np.sin(theta), np.sin(phi),
+             np.cos(phi) * np.cos(theta)], axis=-1,
+        ).reshape(-1, 3)
+        dirs = dirs @ ext[0:3, 0:3].T  # into the world by the camera basis
+        origins = np.broadcast_to(cam, dirs.shape).astype(np.float32)
+
+        bvh = DeviceBVH.from_flat(build_bvh(mesh.vertices, mesh.faces),
+                                  device=dev)
+        hit = cast_rays(bvh, torch.from_numpy(origins).to(dev),
+                        torch.from_numpy(np.ascontiguousarray(dirs)).to(dev),
+                        t_min=1e-5)
+        pos, nrm, _ = interpolate_attributes(DeviceMesh.from_mesh(mesh, dev),
+                                             hit)
+        valid = (hit.prim >= 0).cpu().numpy()
+        pos, nrm = pos.cpu().numpy(), nrm.cpu().numpy()
+        self.points = (pos + offset * nrm).astype(np.float32)
+        self.normals = nrm.astype(np.float32)
+        self.mask = valid.reshape(h, w)
+        self.points[~valid] = 0
+        self.normals[~valid] = 0
+
+    def __len__(self) -> int:
+        return self.points.shape[0]
+
+    def batches(self, batch_size: int):
+        for s in range(0, len(self), batch_size):
+            sl = slice(s, s + batch_size)
+            yield {"points": self.points[sl], "normals": self.normals[sl]}
 
 
 def _pano_mask(derived_dir: str) -> np.ndarray:

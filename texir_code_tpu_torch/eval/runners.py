@@ -40,9 +40,13 @@ from texir_code_tpu_torch.eval.renderer import (
     EvalMaterialModel,
     load_optimized_materials,
 )
-from texir_code_tpu_torch.train.exp import ExperimentDir, seed_everything
+from texir_code_tpu_torch.train.exp import (
+    SEED,
+    ExperimentDir,
+    draw_seed,
+    seed_everything,
+)
 
-SEED = 666
 PATHTRACE_NOT_PORTED = (
     "relight_mode 'pathtrace' is not ported to texir_code_tpu_torch yet: it "
     "needs eval/path_tracer.py (ROADMAP.md queue A item 10)"
@@ -119,7 +123,7 @@ class _TesterBase:
     def draw_seed(n: int = 0) -> int:
         """The draw seed of the tester's n-th keyed render (the JAX tester
         folds n into PRNGKey(666))."""
-        return (SEED << 24) + n
+        return draw_seed(n)
 
     def _default_dataset(self):
         return ImageCubeDerived(

@@ -1,4 +1,4 @@
-"""Losses of the Mat stage (the port of the JAX package's `models/losses.py`,
+"""Losses of the Mat and field stages (the port of the JAX package's `models/losses.py`,
 reference models/loss.py).
 
 Segmentation is carried as an integer class-id image, and every per-class
@@ -6,6 +6,7 @@ statistic (means, counts, quantiles) is a segment reduction (`index_add`),
 so no [classes, pixels] one-hot expansion is built.  The loss values keep
 the reference's formulas and normalizations:
 
+  * ``irf_loss`` / ``IRFLoss`` — models/loss.py:28-52 (the field stages);
   * ``render_loss`` stages 0/1/2 — models/loss.py:81-115;
   * ``seg_loss`` modes 0/1/2 — :214-295 (class-mean pull, highlight-
     quantile roughness propagation, per-room variant);
@@ -32,6 +33,24 @@ def l1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def l2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((a - b) ** 2).mean()
+
+
+def irf_loss(gt: torch.Tensor, pred: torch.Tensor,
+             loss_type: str = "L1") -> torch.Tensor:
+    """NIrF loss: |hdr_scale(gt) - pred| — the MLP predicts in log domain
+    (reference models/loss.py:41-52)."""
+    fn = l1 if loss_type == "L1" else l2
+    return fn(hdr_scale(gt), pred)
+
+
+class IRFLoss:
+    """Callable wrapper with the reference class's interface."""
+
+    def __init__(self, loss_type: str = "L1"):
+        self.loss_type = loss_type
+
+    def __call__(self, res: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return irf_loss(res["gt"], res["pred"], self.loss_type)
 
 
 # ---------------------------------------------------------------------------

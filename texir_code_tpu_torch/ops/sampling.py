@@ -73,6 +73,11 @@ def hash_uniform(seed: int, ids: torch.Tensor, stream: torch.Tensor):
     return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
+def normalize(x: torch.Tensor, eps: float = TINY_NUMBER) -> torch.Tensor:
+    """x / (||x|| + eps) along the last axis (reference's norm_axis)."""
+    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + eps)
+
+
 def _soa_norm(v: Vec3s, eps: float = TINY_NUMBER) -> Vec3s:
     n = torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]) + eps
     return (v[0] / n, v[1] / n, v[2] / n)
@@ -104,6 +109,12 @@ def build_onb_soa(normals: Vec3s) -> Tuple[Vec3s, Vec3s, Vec3s]:
     u = _soa_norm(_soa_cross(ax, n))
     v = _soa_norm(_soa_cross(n, u))
     return n, u, v
+
+
+def build_onb(normals: torch.Tensor):
+    """AoS wrapper of build_onb_soa: [..., 3] in/out."""
+    n, u, v = build_onb_soa(tuple(normals[..., k] for k in range(3)))
+    return tuple(torch.stack(t, dim=-1) for t in (n, u, v))
 
 
 def stratified_samples(
@@ -221,6 +232,26 @@ def generate_dir_soa(
     )
 
 
+def generate_dir(
+    normals: torch.Tensor,
+    num_samples: int,
+    mode: str = "uniform",
+    roughness: Optional[torch.Tensor] = None,
+    pre_mode: str = "hammersley",
+    samples: Optional[torch.Tensor] = None,
+    row_ids: Optional[torch.Tensor] = None,
+    seed: int = 0,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """AoS wrapper of generate_dir_soa: normals [B, 3] → dirs [B, S, 3]."""
+    soa = generate_dir_soa(
+        tuple(normals[..., k] for k in range(3)), num_samples, mode=mode,
+        roughness=roughness, pre_mode=pre_mode, samples=samples,
+        row_ids=row_ids, seed=seed, generator=generator,
+    )
+    return torch.stack(soa, dim=-1)
+
+
 def reflect_soa(view: Vec3s, half: Vec3s):
     """SoA reflect: view 3×[B], half 3×[B, S] → (light 3×[B, S], vdh [B, S]).
 
@@ -233,3 +264,11 @@ def reflect_soa(view: Vec3s, half: Vec3s):
     ).clamp(0.0, 1.0)
     light = tuple(2.0 * vdh * half[k] - view[k][:, None] for k in range(3))
     return light, vdh
+
+
+def reflect(view: torch.Tensor, half: torch.Tensor):
+    """Reflect view directions about sampled half-vectors, AoS: view
+    [B, 3], half [B, S, 3] → (light_dirs [B, S, 3], vdh [B, S, 1]), with
+    ``l = 2·(v·h)·h - v`` and v·h clamped to [0, 1]."""
+    vdh = (half * view[:, None, :]).sum(dim=-1, keepdim=True).clamp(0.0, 1.0)
+    return 2.0 * vdh * half - view[:, None, :], vdh

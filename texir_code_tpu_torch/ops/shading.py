@@ -3,11 +3,12 @@
 The port of the JAX package's `ops/shading.py` (reference
 utils/general.py:61-112 and models/mat_nvdiffrast.py:232-279):
 
-  * ``hdr_scale``, ``tonemap``, ``mse_to_psnr``, ``rgb_to_intensity``,
-    ``get_mip_level`` — the HDR-domain helpers;
+  * ``hdr_scale``, ``hdr_recover``, ``tonemap``, ``mse_to_psnr``,
+    ``rgb_to_intensity``, ``get_mip_level`` — the HDR-domain helpers;
   * ``fresnel_schlick_ue4``, ``smith_g``, ``ggx_d`` — the BRDF terms;
   * ``lambertian_diffuse`` (the IrT path), ``irradiance_estimator_soa`` (the
-    bake) and ``specular_estimator_soa`` (GGX importance MC).
+    bake), ``irradiance_estimator`` (its AoS form, the NIrF ground truth)
+    and ``specular_estimator_soa`` (GGX importance MC).
 
 Everything is elementwise fp32 PyTorch; the reference's epsilon clamps are
 kept as they are — they keep backward passes finite at grazing angles.
@@ -25,6 +26,11 @@ from texir_code_tpu_torch.ops.sampling import TINY_TINY_NUMBER
 def hdr_scale(img: torch.Tensor, base: float = math.e) -> torch.Tensor:
     """log-domain compression: log(1+x)/log(base)."""
     return torch.log(img + 1.0) / math.log(base)
+
+
+def hdr_recover(img: torch.Tensor, base: float = math.e) -> torch.Tensor:
+    """Inverse of hdr_scale: base**x - 1."""
+    return torch.pow(base, img) - 1.0
 
 
 def tonemap(img: torch.Tensor) -> torch.Tensor:
@@ -94,6 +100,16 @@ def irradiance_estimator_soa(lighting, light_dirs, normal, num_samples: int):
     ).clamp(0.0, 1.0)
     scale = 2.0 * math.pi / num_samples
     return tuple((lighting[k] * ndl).sum(dim=1) * scale for k in range(3))
+
+
+def irradiance_estimator(lighting, light_dirs, normal, num_samples=None):
+    """Uniform-hemisphere MC irradiance, AoS: lighting / light_dirs
+    [B, S, 3], normal [B, 3] → [B, 3], Σ L·ndl·2π/S (the NIrF ground-truth
+    integrand, reference models/tracer_o3d_irrf.py:121-122)."""
+    s = num_samples if num_samples is not None else lighting.shape[-2]
+    ndl = (normal[:, None, :] * light_dirs).sum(
+        dim=-1, keepdim=True).clamp(0.0, 1.0)
+    return (lighting * ndl).sum(dim=1) * (2.0 * math.pi / s)
 
 
 def specular_estimator_soa(lighting, half, normal, view, light_dirs,

@@ -1,4 +1,4 @@
-"""Experiment directory layout and the global seed.
+"""Experiment directory layout, the global seed and the stages' Adam.
 
 Reproduces the reference's exp management (trainer/train_material.py:62-94):
 
@@ -76,7 +76,17 @@ class ScalarWriter:
         self._f.close()
 
 
-def seed_everything(seed: int = 666) -> torch.Generator:
+SEED = 666  # the reference's global seed
+
+
+def draw_seed(n: int) -> int:
+    """The draw seed of a runner's or tester's n-th keyed call.  The JAX
+    package folds n into PRNGKey(666); the port hashes this seed with each
+    row's global id (ops.sampling.hash_uniform)."""
+    return (SEED << 24) + n
+
+
+def seed_everything(seed: int = SEED) -> torch.Generator:
     """Seed numpy, `random` and torch's default generator with `seed` (the
     reference seeds all three with 666) and return a CPU `torch.Generator`
     seeded alike, which the stages thread through explicitly."""
@@ -84,3 +94,19 @@ def seed_everything(seed: int = 666) -> torch.Generator:
     random.seed(seed)
     torch.manual_seed(seed)
     return torch.Generator().manual_seed(seed)
+
+
+def adam_staircase(parameters, lr: float, sched_step: int, factor: float,
+                   steps_per_epoch: int):
+    """torch.optim.Adam over `parameters` with the JAX stages' staircase
+    decay, `optax.exponential_decay(lr, transition_steps=sched_step ·
+    steps_per_epoch, decay_rate=factor, staircase=True)` (the reference's
+    StepLR counted in epochs): optimizer step k uses lr · factor^floor(k /
+    (sched_step · steps_per_epoch)).  Returns (optimizer, scheduler); call
+    scheduler.step() after each optimizer.step()."""
+    opt = torch.optim.Adam(list(parameters), lr=lr)
+    period = max(1, sched_step * steps_per_epoch)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda k: factor ** (k // period)
+    )
+    return opt, sched

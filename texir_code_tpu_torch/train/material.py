@@ -39,11 +39,16 @@ from texir_code_tpu_torch.data import hdrio
 from texir_code_tpu_torch.data.datasets import ImageCubeDerived
 from texir_code_tpu_torch.device import resolve_device
 from texir_code_tpu_torch.train import checkpoints as ckpt
-from texir_code_tpu_torch.train.exp import ExperimentDir, seed_everything
+from texir_code_tpu_torch.train.exp import (
+    SEED,
+    ExperimentDir,
+    adam_staircase,
+    draw_seed,
+    seed_everything,
+)
 
 NUM_SEG_CLASSES = 49  # the reference's seg tag range 0..48 (:188)
 FLOOR_CLASS = 46      # seg_tag[-3] (:258)
-SEED = 666
 
 
 def parse_roomseg(path: str):
@@ -68,21 +73,6 @@ def room_ids_at(roomseg, positions: np.ndarray) -> np.ndarray:
     cols = np.clip((u * img.shape[1]).astype(int), 0, img.shape[1] - 1)
     rows = np.clip((v * img.shape[0]).astype(int), 0, img.shape[0] - 1)
     return img[rows, cols].astype(np.int32)
-
-
-def adam_for_substage(params, lr: float, sched_step: int, factor: float,
-                      steps_per_epoch: int):
-    """torch.optim.Adam over the atlases with the JAX package's optax
-    schedule, `exponential_decay(lr, sched_step·steps_per_epoch, factor,
-    staircase=True)`: step k uses lr·factor^floor(k / (sched_step·
-    steps_per_epoch)).  Returns (optimizer, scheduler); call
-    scheduler.step() after each optimizer.step()."""
-    opt = torch.optim.Adam([params.albedo, params.roughness], lr=lr)
-    period = max(1, sched_step * steps_per_epoch)
-    sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, lambda k: factor ** (k // period)
-    )
-    return opt, sched
 
 
 class MatTrainRunner:
@@ -202,7 +192,7 @@ class MatTrainRunner:
         """The draw seed of the runner's n-th keyed call (the JAX runner
         folds n into PRNGKey(666)): steps use their global iteration,
         the mask pass view i, re-renders 10_000 + i, plots 30_000 + i."""
-        return (SEED << 24) + n
+        return draw_seed(n)
 
     def _item(self, i: int):
         t0 = time.time()
@@ -343,9 +333,9 @@ class MatTrainRunner:
         t1 = time.time()
         for p in (self.params.albedo, self.params.roughness):
             p.requires_grad_(True)
-        optimizer, scheduler = adam_for_substage(
-            self.params, self.lr, self.sched_step, self.sched_factor,
-            max(1, len(indices)))
+        optimizer, scheduler = adam_staircase(
+            [self.params.albedo, self.params.roughness], self.lr,
+            self.sched_step, self.sched_factor, max(1, len(indices)))
         views_s, optim_s = t1 - t0, time.time() - t1
         step_s, first_step_s = 0.0, None
         for epoch in range(epochs):
