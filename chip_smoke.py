@@ -10,8 +10,9 @@ triangles): export the scan, bake its IrrT, train its materials; on the
 apartment also the FanScene-only configuration (no ClusterScene: every ray
 against every leaf row, kernels B2/B3), the Mat step with the sampler's
 segment-sum backward (kernel S), the four testers, the BVH traversal and
-the quality run's path (the material-rendered export, IrrT, MatSyn), and
-the field stages (NIrF at full width, IRF, PIL).
+the quality run's path (the material-rendered export, IrrT, MatSyn), the
+field stages (NIrF at full width, IRF, PIL), path-traced relighting and
+the five tools.
 Phases (any failure exits non-zero; nothing is caught):
   1. device: torch's view of the card, and nvidia-smi's name and power limit;
   2. build: every CUDA kernel of the port from csrc/ (culled_walk,
@@ -121,11 +122,24 @@ Phases (any failure exits non-zero; nothing is caught):
  34. irf: `--trainstage IRF --max_epochs 1`, validation at [64, 128] x
      [16, 32];
  35. pil: `--trainstage PIL --max_epochs 1`, validation at 1024 points x
-     512 spp x 5 roughnesses.
+     512 spp x 5 roughnesses;
+ 36. pathtrace (after 14): `test --teststage Relighting --relight_mode
+     pathtrace` through the port's CLI at the JAX CLI's defaults (pano
+     64x128, spp 16, 3 bounces, a quad light under each of the 4 cameras)
+     on the export and the atlases of 10: seconds a frame, casts a view,
+     rays a cast, the BVH traversal's iterations and host syncs, every
+     frame finite and lit; one view under torch.profiler (launches, idle
+     share).  No hand-written kernel runs on this path;
+ 37. pathtrace-reference: one trace of a band of view 0's pixels on the
+     card against the CPU from the same draws (rel L2 1e-4);
+ 38. tools: `relighting_varying --frames 2` on the card on the same mesh
+     and atlases, and the four host tools (padding_texture, trans_hdr_tex,
+     hdr2ldr, arrange_syn) on a small input, without OpenCV.
 Kernel launch counts are zeroed just before each main-path run (5, 6, 9,
 10, 11, 12, 13, each tester of 14, the switch-on steps of 17, each run of
-19, 20, 21, 29, the MatSyn stage of 30, 33, 34, 35) and read just after;
-every kernel mode of that run must have run.  Then a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
+19, 20, 21, 29, the MatSyn stage of 30, 33, 34, 35, 36) and read just
+after; every kernel mode of that run must have run (36 runs none).
+Then a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
 line.  Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
 """
@@ -205,6 +219,11 @@ IRRF_EPOCHS = 2  # --max_epochs: the IRRF runner trains epochs 0..2
 IRRF_MODE = "per_ray_prim"
 IRRF_VAL_BATCH = 512  # pixels a validation batch (the JAX runner's)
 IRF_VAL = ("val.env_res=[64,128]", "train.val_sample_res=[16,32]")
+# path-traced relighting at the JAX CLI's defaults (texir_code_tpu/cli.py:
+# 177-184): pano 64x128, spp 16, 3 bounces
+PT_PANO, PT_SPP, PT_BOUNCES = (64, 128), 16, 3
+PT_BAND = (24, 40)  # pano rows of view 0 traced again on the CPU
+PT_BAND_SPP = 2
 
 
 def log(msg=""):
@@ -761,10 +780,16 @@ def phase_reference(torch, dev, clusters, occ, syn):
 
 
 def profile_kernels(prof):
-    """(kernel device ms by name, kernel launches) from a profile."""
+    """(kernel device ms by name, kernel launches) from a profile: device
+    events only, without the device spans of record_function ranges (the
+    optimizer's "Optimizer.step#..." range spans kernels counted on their
+    own)."""
     kern, launches = {}, 0
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        if getattr(e, "is_user_annotation", False) or e.key.startswith(
+                "Optimizer."):
             continue
         us = getattr(e, "device_time_total", None)
         if us is None:
@@ -2310,6 +2335,238 @@ def phase_relit_reference(torch, dev, syn):
         raise SystemExit("the relit render on the card disagrees with the CPU")
 
 
+
+def _kernel_counters():
+    """Every hand-written kernel's launch counter (B1, B2/B3, S)."""
+    from texir_code_tpu_torch.ops.pallas_culled import culled_walk_cuda
+    from texir_code_tpu_torch.ops.pallas_fan import fan_stream_cuda
+    from texir_code_tpu_torch.ops.scatter_acc import scatter_accumulate_cuda
+
+    return {"culled_walk": culled_walk_cuda.launches,
+            "fan_stream": fan_stream_cuda.launches,
+            "scatter_acc": scatter_accumulate_cuda.launches}
+
+
+def _mat_atlases(mat_exps):
+    """The albedo and roughness atlas files of [mat]'s newest run."""
+    import glob
+
+    plots = sorted(glob.glob(os.path.join(mat_exps, "Mat-default", "*",
+                                          "plots")))[-1]
+    return tuple(sorted(glob.glob(os.path.join(plots, f"mat_{k}_*.hdr")))[-1]
+                 for k in ("albedo", "roughness"))
+
+
+def phase_pathtrace(torch, path_mesh, mat_exps):
+    """`test --teststage Relighting --relight_mode pathtrace` through the
+    port's CLI at the JAX CLI's defaults (pano 64x128, spp 16, 3 bounces,
+    a quad light under each of the 4 cameras) on the apartment's export and
+    [mat]'s atlases: seconds a frame, casts a view, rays a cast, the
+    traversal's iterations and host syncs; every frame finite and lit; no
+    hand-written kernel on this path (the traversal is plain PyTorch).
+    Then one view under torch.profiler."""
+    import glob
+
+    from texir_code_tpu_torch import cli
+    from texir_code_tpu_torch.data import hdrio
+    from texir_code_tpu_torch.eval.path_tracer import PathTracedMaterialModel
+
+    render_pano, views = PathTracedMaterialModel.render_pano, []
+
+    def timed_render_pano(self, cam_position, res, seed=0, **kw):
+        n0 = len(self.casts)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img = render_pano(self, cam_position, res, seed, **kw)
+        views.append(dict(tracer=self, cam=cam_position, seed=seed,
+                          s=time.time() - t0, casts=self.casts[n0:]))
+        return img
+
+    counters = _kernel_counters()
+    for c in counters.values():
+        c.clear()
+    argv = _tester_argv("Relighting", path_mesh, mat_exps,
+                        ["--relight_mode", "pathtrace"])
+    PathTracedMaterialModel.render_pano = timed_render_pano
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+    finally:
+        PathTracedMaterialModel.render_pano = render_pano
+    launched = {k: sum(c.values()) for k, c in counters.items()}
+    files = sorted(glob.glob(os.path.join(
+        mat_exps, "Relighting-default", "*", "plots", "pt_relit_*.hdr")))
+    imgs = [hdrio.read_hdr(f) for f in files]
+    log(f"[pathtrace] test --teststage Relighting --relight_mode pathtrace "
+        f"via cli: {len(files)} frames at {PT_PANO[0]}x{PT_PANO[1]}, spp "
+        f"{PT_SPP}, {PT_BOUNCES} bounces, {len(views)} lights, in {dt:.2f} s "
+        f"with set-up = {dt / max(1, len(files)):.3f} s a frame; frame means "
+        f"{[round(float(i.mean()), 5) for i in imgs]}")
+    for i, v in enumerate(views):
+        c = v["casts"]
+        log(f"[pathtrace]   view {i}: {v['s']:.3f} s, {len(c)} casts of "
+            f"{sorted({x['rays'] for x in c})} rays, iterations "
+            f"{[x['iterations'] for x in c]}, host syncs "
+            f"{[x['syncs'] for x in c]}, compactions "
+            f"{[x['compactions'] for x in c]}")
+    log(f"[pathtrace]   hand-written kernel launches on this path: "
+        f"{launched}")
+    if len(files) != VIEWS or len(views) != VIEWS:
+        raise SystemExit(f"[pathtrace] {len(files)} frames and {len(views)} "
+                         f"views, expected {VIEWS}")
+    if not all(i.shape == PT_PANO + (3,) and np.isfinite(i).all()
+               and i.max() > 0 for i in imgs):
+        raise SystemExit("[pathtrace] a frame is misshapen, non-finite or "
+                         "black")
+    if any(len(v["casts"]) != 2 * PT_BOUNCES for v in views):
+        raise SystemExit("[pathtrace] a view took other than one path and "
+                         "one shadow cast a bounce")
+    v = views[0]
+    t0 = time.time()
+    profile_once(torch, "pathtrace", f"one view ({PT_SPP} spp in one cast)",
+                 lambda: v["tracer"].render_pano(v["cam"], PT_PANO, v["seed"]))
+    log(f"[pathtrace]   profile taken and read in {time.time() - t0:.1f} s")
+
+
+def phase_pathtrace_reference(torch, dev, path_mesh, mat_exps):
+    """One trace of a band of view 0's pixels (rows PT_BAND of the 64x128
+    pano, PT_BAND_SPP samples, 3 bounces, a light under each camera) on the
+    card and on the CPU from the same draws: radiance rel L2 <= 1e-4."""
+    from texir_code_tpu_torch.data import hdrio
+    from texir_code_tpu_torch.data.datasets import ImageCubeDerived
+    from texir_code_tpu_torch.data.export import pano_dirs
+    from texir_code_tpu_torch.eval.path_tracer import (
+        PathTracedMaterialModel,
+        light_under_camera,
+    )
+    from texir_code_tpu_torch.geometry import load_obj
+    from texir_code_tpu_torch.train.exp import draw_seed
+
+    ds = ImageCubeDerived(path_mesh, resolution=PANO)
+    cams = [ds[i]["cam_position"] for i in range(len(ds))]
+    albedo, rough = (hdrio.read_hdr(f) for f in _mat_atlases(mat_exps))
+    d = pano_dirs(*PT_PANO)[PT_BAND[0]:PT_BAND[1]].reshape(-1, 3)
+    d = np.tile(d, (PT_BAND_SPP, 1))
+    b = d.shape[0]
+    mesh = load_obj(path_mesh)
+    out, secs = [], []
+    for dv in (dev, torch.device("cpu")):
+        tr = PathTracedMaterialModel(
+            mesh, albedo, rough[..., 0:1],
+            [light_under_camera(c) for c in cams], max_bounces=PT_BOUNCES,
+            spp=PT_BAND_SPP, device=dv)
+        draws = tr.draws(draw_seed(0), torch.arange(b))
+        o = tuple(torch.full((b,), float(cams[0][k]), device=dv)
+                  for k in range(3))
+        dd = tuple(torch.tensor(d[:, k], device=dv) for k in range(3))
+        t0 = time.time()
+        out.append(tr.trace(o, dd, draws=[x.to(dv) for x in draws]).cpu())
+        secs.append(time.time() - t0)
+    rel = float((out[0] - out[1]).norm() / out[1].norm())
+    off = ((out[0] - out[1]).abs() > 1e-5 + 1e-4 * out[1].abs()).any(-1)
+    log(f"[pathtrace-reference] trace of {b} paths (view 0 rows "
+        f"{PT_BAND[0]}-{PT_BAND[1]} x {PT_BAND_SPP} spp, {PT_BOUNCES} "
+        f"bounces, {len(cams)} lights) card vs cpu: radiance rel L2 "
+        f"{rel:.3g}, {int(off.sum())} paths beyond rtol 1e-4 / atol 1e-5 "
+        f"(card {secs[0]:.2f} s, cpu {secs[1]:.2f} s); mean "
+        f"{float(out[1].mean()):.5f}")
+    if not (rel <= 1e-4 and float(out[1].max()) > 0):
+        raise SystemExit("[pathtrace-reference] the path tracer on the card "
+                         "disagrees with the CPU")
+
+
+def phase_tools(torch, path_mesh, mat_exps, tmp):
+    """The five tools: `relighting_varying --frames 2` on the card at its
+    other defaults (pano 64x128, spp 16, 2 bounces, the colour sequence)
+    on the apartment's mesh and [mat]'s atlases; then the four host tools
+    on a small input written here (no OpenCV on this machine): the
+    padding tool (denoise on the card, and --index on a 16-bit index
+    texture), the four trans_hdr_tex repacks, hdr2ldr and arrange_syn."""
+    from texir_code_tpu_torch.data import hdrio
+    from texir_code_tpu_torch.tools import (
+        arrange_syn,
+        hdr2ldr,
+        padding_texture,
+        relighting_varying,
+        trans_hdr_tex,
+    )
+
+    albedo, rough = _mat_atlases(mat_exps)
+    out = os.path.join(tmp, "relit_varying")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    relighting_varying.main(["--mesh", path_mesh, "--albedo", albedo,
+                             "--roughness", rough, "--out-dir", out,
+                             "--frames", "2"])
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    frames = [hdrio.read_hdr(os.path.join(out, f))
+              for f in sorted(os.listdir(out))]
+    log(f"[tools] relighting_varying --frames 2 on the card: {dt:.2f} s "
+        f"with set-up; frame means "
+        f"{[round(float(f.mean()), 5) for f in frames]}")
+    if len(frames) != 2 or not all(f.shape == PT_PANO + (3,)
+                                   and np.isfinite(f).all() and f.max() > 0
+                                   for f in frames):
+        raise SystemExit("[tools] relighting_varying wrote wrong frames")
+
+    rng = np.random.default_rng(60)
+    root = os.path.join(tmp, "tools")
+    proj = os.path.join(root, "project")
+    ids = ["scanA", "scanB"]
+    os.makedirs(os.path.join(proj, "info"))
+    with open(os.path.join(proj, "info", "aligned.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+    for vid, (h, w) in zip(ids, [(16, 32), (24, 48)]):
+        for sub in ("hdr", "derived", "methods/phyir"):
+            os.makedirs(os.path.join(proj, sub, vid))
+        hdrio.write_hdr(os.path.join(proj, "hdr", vid, "ccm.hdr"),
+                        rng.uniform(0, 4, (h, w, 3)).astype(np.float32))
+        hdrio.write_png(os.path.join(proj, "derived", vid,
+                                     "panoImage_gray.png"),
+                        rng.integers(0, 40, (h, w), dtype=np.uint8))
+        for kind in ("albedo", "roughness"):
+            hdrio.write_png(os.path.join(proj, "methods/phyir", vid,
+                                         f"{kind}.png"),
+                            rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    idx = np.zeros((40, 40, 3), np.uint16)
+    idx[6:, :, 2] = rng.integers(0, 50000, (34, 40))  # row (BGR order)
+    idx[6:, :, 1] = rng.integers(0, 50000, (34, 40))  # col
+    idx[6:, :, 0] = rng.integers(0, 2, (34, 40))      # view
+    os.makedirs(os.path.join(proj, "hdr_texture"))
+    hdrio.write_png(os.path.join(proj, "hdr_texture", "0.png"), idx)
+    t0 = time.time()
+    for target in ("hdr", "seg", "albedo", "roughness"):
+        trans_hdr_tex.main([target, "--project", proj])
+    tex = os.path.join(proj, "hdr_texture", "0_hdr_ccm_upper.hdr")
+    padding_texture.main([tex, os.path.join(root, "padded.hdr")])
+    padding_texture.main([os.path.join(proj, "hdr_texture", "0.png"),
+                          os.path.join(root, "padded_index.png"), "--index"])
+    hdr2ldr.main([tex, "--out-dir", os.path.join(root, "ldr")])
+    arrange_syn.main(["--src", os.path.join(proj, "hdr", "scanA"), "--out",
+                      os.path.join(root, "arranged"), "--mesh", path_mesh])
+    padded = hdrio.read_hdr(os.path.join(root, "padded.hdr"))
+    pidx = hdrio.read_png(os.path.join(root, "padded_index.png"))
+    albedo_atlas = hdrio.read_png(os.path.join(proj, "hdr_texture",
+                                               "0_phyir_albedo.png"))
+    ok = (np.isfinite(padded).all() and (padded.sum(-1) > 0).all()
+          and pidx.dtype == np.uint16 and (pidx.sum(-1) > 0).all()
+          and np.array_equal(pidx[6:], idx[6:])
+          and albedo_atlas.shape == (2048, 2048, 3)
+          and os.path.exists(os.path.join(root, "ldr",
+                                          "0_hdr_ccm_upper.png"))
+          and os.path.exists(os.path.join(root, "arranged", "hdr", "view000",
+                                          "ccm.hdr")))
+    log(f"[tools] trans_hdr_tex (hdr, seg, albedo, roughness), "
+        f"padding_texture (denoise on the card; --index), hdr2ldr and "
+        f"arrange_syn on a 40x40 index texture of 2 views in "
+        f"{time.time() - t0:.2f} s: outputs {'as expected' if ok else 'WRONG'}")
+    if not ok:
+        raise SystemExit("[tools] a host tool wrote a wrong output")
+
 def phase_bvh(torch, dev, syn, clusters):
     """The BVH traversal (ops/raycast.py::cast_rays_soa, plain PyTorch) on
     one view's pano rays: against B1 shared_prim on the same rays (prim
@@ -2758,16 +3015,13 @@ def profile_irrf_step(torch, path_mesh, tmp):
     wall, kern, launches = profile_once(
         torch, "irrf", "one IRRF train step (16 points x 2048 rays)",
         lambda: r.train_step(pts, nrm, next(it), ids), top=8)
-    # the optimizer's profiler range spans kernels counted on their own
-    ranges = {k for k in kern if k.startswith("Optimizer.")}
     walk = sum(ms for k, ms in kern.items() if "culled_walk" in k)
     mlp = sum(ms for k, ms in kern.items() if "gemm" in k.lower())
-    busy = sum(ms for k, ms in kern.items() if k not in ranges)
-    log(f"[irrf]   step: {launches - len(ranges)} launches, B1 {walk:.4f} "
-        f"ms, the MLP's matrix products {mlp:.4f} ms, the rest "
-        f"{busy - walk - mlp:.4f} ms on the card (the optimizer's range, "
-        f"{sum(kern[k] for k in ranges):.4f} ms, not added); idle share "
-        f"{max(0.0, 1 - busy / wall):.3f} of {wall:.3f} ms")
+    busy = sum(kern.values())
+    log(f"[irrf]   step: {launches} launches, B1 {walk:.4f} ms, the MLP's "
+        f"matrix products {mlp:.4f} ms, the rest {busy - walk - mlp:.4f} ms "
+        f"on the card; idle share {max(0.0, 1 - busy / wall):.3f} of "
+        f"{wall:.3f} ms")
     if walk <= 0:
         raise SystemExit("[irrf] the profiled step ran no culled walk")
 
@@ -2871,6 +3125,12 @@ def main():
         rows["per_ray_prim"]["launches"] = fan_launches["culled:per_ray_prim"]
         phase_error(torch, path_mesh, tmp, os.path.join(tmp, "exps"))
         phase_testers(torch, syn, path_mesh, os.path.join(tmp, "exps"))
+        phase_pathtrace(torch, path_mesh, os.path.join(tmp, "exps"))
+        phase_pathtrace_reference(torch, dev, path_mesh,
+                                  os.path.join(tmp, "exps"))
+        phase_tools(torch, path_mesh, os.path.join(tmp, "exps"), tmp)
+        log(f"[time] path tracer and tools done at "
+            f"{time.time() - t_start:.1f} s")
         phase_profile(torch, dev, clusters, occ, syn)
         phase_mat_profile(torch, path_mesh, tmp)
         s_rows["sorted"]["launches"] = phase_mat_segsum(torch, dev, path_mesh,

@@ -233,13 +233,6 @@ def test_cli_testers_end_to_end_cpu(cli_scan, stage, extra, files):
         assert np.isfinite(img).all() and img.max() > 0, name
 
 
-def test_cli_relight_pathtrace_names_roadmap(cli_scan):
-    argv, _ = cli_scan
-    with pytest.raises(SystemExit, match="ROADMAP.md queue A item 10"):
-        cli.main(argv + ["--teststage", "Relighting", "--relight_mode",
-                         "pathtrace"])
-
-
 def test_jax_hdr_reader_reads_port_atlases(data):
     """The atlases this test writes with the port's .hdr writer read back
     the same through the JAX package's reader (the testers' shared

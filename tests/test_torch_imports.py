@@ -52,7 +52,10 @@ def test_scan_covers_the_port():
                 ("ops", "raycast.py"), ("ops", "fan_raycast.py"),
                 ("data", "export.py"), ("train", "material_syn.py"),
                 ("scripts", "quality_run.py"),
-                ("scripts", "roughness_classes.py")):
+                ("scripts", "roughness_classes.py"),
+                ("eval", "path_tracer.py"), ("tools", "relighting_varying.py"),
+                ("tools", "padding_texture.py"), ("tools", "trans_hdr_tex.py"),
+                ("tools", "hdr2ldr.py"), ("tools", "arrange_syn.py")):
         assert os.path.join("texir_code_tpu_torch", *mod) in names
     assert len(names) > 20
 

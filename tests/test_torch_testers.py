@@ -262,12 +262,6 @@ def test_forward_relit_chunks_match(relighting):
         assert torch.equal(one[k], stage2[k]), k
 
 
-def test_relighting_pathtrace_not_ported(relighting):
-    _, tr = relighting
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        tr.run(mode="pathtrace")
-
-
 def test_edited_params_needs_seg_atlas(editing):
     _, tr = editing
     seg = tr.model.seg_texture

@@ -21,11 +21,11 @@ SVBRDF atlases; MatSyn adds the GT-material and novel-view metrics), and
 the field stages IRRF (the neural irradiance field, NIrF), IRF (the
 view-dependent incident-radiance field) and PIL (the pre-integrated
 lighting field).  Stages of the JAX CLI that are not ported yet (the
-baseline heads), and the relighting tester's path-traced mode, exit with
-an error naming the ROADMAP.md item that will port them.  The CLI runs
-float32 matrix products and convolutions in full fp32 on the card (TF32
-off): the SSIM blur of the re-render metrics cancels catastrophically at
-lower precision, and the field MLPs stay in fp32 as in the JAX package.
+baseline heads) exit with an error naming the ROADMAP.md item that will
+port them.  The CLI runs float32 matrix products and convolutions in full
+fp32 on the card (TF32 off): the SSIM blur of the re-render metrics
+cancels catastrophically at lower precision, and the field MLPs stay in
+fp32 as in the JAX package.
 """
 
 from __future__ import annotations
@@ -115,13 +115,8 @@ def _view(conf, args):
 
 
 def _relighting(conf, args):
-    from texir_code_tpu_torch.eval.runners import (
-        PATHTRACE_NOT_PORTED,
-        RelightingRunner,
-    )
+    from texir_code_tpu_torch.eval.runners import RelightingRunner
 
-    if args.relight_mode == "pathtrace":
-        raise SystemExit(PATHTRACE_NOT_PORTED)
     return _tester(RelightingRunner, conf, args).run(mode=args.relight_mode)
 
 

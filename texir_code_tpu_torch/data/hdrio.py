@@ -8,9 +8,10 @@ through cv2; the machine with the card has no OpenCV or PIL, so:
     pixel, the same rounding as ``cv2.imread``/``imwrite`` through Bruce
     Walter's rgbe routines).  Reading accepts flat and new-style
     run-length-encoded scanlines; writing emits flat scanlines.
-  * PNG is a zlib/struct codec for 8-bit gray, gray+alpha, RGB and RGBA
-    images: reading undoes all five scanline filters, so a PNG that cv2
-    wrote reads back bit-equal to ``cv2.imread``; writing uses filter 0.
+  * PNG is a zlib/struct codec for 8- and 16-bit gray, gray+alpha, RGB
+    and RGBA images: reading undoes all five scanline filters, so a PNG
+    that cv2 wrote reads back bit-equal to ``cv2.imread`` (in RGB order);
+    writing uses filter 0.
   * JPEG is not decoded: the datasets read only a panorama's size from
     it (``jpeg_size``, the SOF marker) — a JPEG carries no alpha mask.
 
@@ -124,7 +125,7 @@ def write_hdr(path: str, img: np.ndarray, flip: bool = False) -> None:
 
 
 # ---------------------------------------------------------------------------
-# PNG (8-bit) and the JPEG header
+# PNG (8- and 16-bit) and the JPEG header
 # ---------------------------------------------------------------------------
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
@@ -132,7 +133,8 @@ _PNG_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}  # colour type → samples per pixel
 
 
 def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
-    """Undo the per-scanline PNG filters → [h, w*bpp] uint8."""
+    """Undo the per-scanline PNG filters → [h, w*bpp] uint8 (bpp: bytes
+    a pixel)."""
     stride = w * bpp
     rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
     out = np.zeros((h, stride), np.uint8)
@@ -169,8 +171,9 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """Read an 8-bit, non-interlaced PNG → uint8 [H, W] (gray) or
-    [H, W, C] (gray+alpha, RGB, RGBA) in the file's channel order."""
+    """Read an 8- or 16-bit, non-interlaced PNG → uint8 or uint16 [H, W]
+    (gray) or [H, W, C] (gray+alpha, RGB, RGBA) in the file's channel
+    order."""
     with open(path, "rb") as f:
         buf = f.read()
     if not buf.startswith(_PNG_SIG):
@@ -189,30 +192,37 @@ def read_png(path: str) -> np.ndarray:
     if head is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = head
-    if depth != 8 or ctype not in _PNG_CHANNELS or interlace:
+    if depth not in (8, 16) or ctype not in _PNG_CHANNELS or interlace:
         raise ValueError(
-            f"{path}: only 8-bit non-interlaced gray/RGB(A) PNGs are read "
-            f"(depth {depth}, colour type {ctype}, interlace {interlace})"
+            f"{path}: only 8/16-bit non-interlaced gray/RGB(A) PNGs are "
+            f"read (depth {depth}, colour type {ctype}, interlace "
+            f"{interlace})"
         )
     ch = _PNG_CHANNELS[ctype]
-    img = _unfilter(zlib.decompress(b"".join(idat)), h, w, ch)
+    nb = depth // 8
+    img = _unfilter(zlib.decompress(b"".join(idat)), h, w, ch * nb)
+    if nb == 2:  # big-endian samples
+        img = img.view(">u2").astype(np.uint16)
     return img.reshape(h, w) if ch == 1 else img.reshape(h, w, ch)
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """Write [H, W] / [H, W, 1|2|3|4] as an 8-bit PNG (filter 0): uint8
-    values as they are, floats in [0, 1] scaled to 0..255 (truncating)."""
+    """Write [H, W] / [H, W, 1|2|3|4] as a PNG (filter 0): uint8 and uint16
+    values as they are (8- and 16-bit), floats in [0, 1] scaled to 0..255
+    (truncating)."""
     img = np.asarray(img)
-    if img.dtype != np.uint8:
+    if img.dtype not in (np.uint8, np.uint16):
         img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    depth = 8 * img.itemsize
     img = np.ascontiguousarray(img)
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[:, :, 0]
     h, w = img.shape[:2]
     ch = 1 if img.ndim == 2 else img.shape[2]
     ctype = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
+    rows = img.reshape(h, w * ch).astype(">u%d" % img.itemsize)
     raw = np.concatenate(
-        [np.zeros((h, 1), np.uint8), img.reshape(h, w * ch)], axis=1
+        [np.zeros((h, 1), np.uint8), rows.view(np.uint8)], axis=1
     ).tobytes()
 
     def chunk(kind, data):
@@ -222,7 +232,8 @@ def write_png(path: str, img: np.ndarray) -> None:
 
     with open(path, "wb") as f:
         f.write(_PNG_SIG)
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)))
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
+                                           0, 0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
         f.write(chunk(b"IEND", b""))
 
@@ -253,12 +264,13 @@ def jpeg_size(path: str):
 
 
 def read_image(path: str) -> np.ndarray:
-    """Read an 8-bit PNG as float32 RGB(A) (or gray) in [0, 1]."""
+    """Read an 8- or 16-bit PNG as float32 RGB(A) (or gray) in [0, 1]."""
     if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg"):
         raise ValueError(
             f"{path}: JPEG pixels are not decoded; use jpeg_size for its size"
         )
-    return read_png(path).astype(np.float32) / 255.0
+    img = read_png(path)
+    return img.astype(np.float32) / float(np.iinfo(img.dtype).max)
 
 
 def read_gray(path: str) -> np.ndarray:
