@@ -11,8 +11,8 @@ apartment also the FanScene-only configuration (no ClusterScene: every ray
 against every leaf row, kernels B2/B3), the Mat step with the sampler's
 segment-sum backward (kernel S), the four testers, the BVH traversal and
 the quality run's path (the material-rendered export, IrrT, MatSyn), the
-field stages (NIrF at full width, IRF, PIL), path-traced relighting and
-the five tools.
+field stages (NIrF at full width, IRF, PIL), path-traced relighting, the
+five tools and the three baseline heads (InvRender, NeILF, nvdiffrec).
 Phases (any failure exits non-zero; nothing is caught):
   1. device: torch's view of the card, and nvidia-smi's name and power limit;
   2. build: every CUDA kernel of the port from csrc/ (culled_walk,
@@ -134,11 +134,23 @@ Phases (any failure exits non-zero; nothing is caught):
      card against the CPU from the same draws (rel L2 1e-4);
  38. tools: `relighting_varying --frames 2` on the card on the same mesh
      and atlases, and the four host tools (padding_texture, trans_hdr_tex,
-     hdr2ldr, arrange_syn) on a small input, without OpenCV.
+     hdr2ldr, arrange_syn) on a small input, without OpenCV;
+ 39. heads (after 30, on its export and IrrT): `train --trainstage
+     MatInvSyn | MatNeilfSyn | MatRecSyn --max_epochs 1` through the
+     port's CLI at full width (configs/reference/syn_*.conf), evaluated
+     at 256 specular spp: stage, step and evaluation seconds, peak memory,
+     the four quality PSNRs (finite), B1 `shared_prim` at least once a
+     view and `per_ray_prim` at least once a step; one step of each under
+     torch.profiler; B1 on a step's captured G-buffer and specular rays
+     against the plain walk;
+ 40. heads-reference: one step of each head (full-width networks, pano
+     64x128) on the card against the CPU from the same parameters and
+     draws: rgb rel L2 1e-4, loss rel 1e-4, gradients rel L2 1e-3.
 Kernel launch counts are zeroed just before each main-path run (5, 6, 9,
 10, 11, 12, 13, each tester of 14, the switch-on steps of 17, each run of
-19, 20, 21, 29, the MatSyn stage of 30, 33, 34, 35, 36) and read just
-after; every kernel mode of that run must have run (36 runs none).
+19, 20, 21, 29, the MatSyn stage of 30, 33, 34, 35, 36, each head of 39)
+and read just after; every kernel mode of that run must have run (36 runs
+none).
 Then a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
 line.  Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -224,6 +236,10 @@ IRF_VAL = ("val.env_res=[64,128]", "train.val_sample_res=[16,32]")
 PT_PANO, PT_SPP, PT_BOUNCES = (64, 128), 16, 3
 PT_BAND = (24, 40)  # pano rows of view 0 traced again on the CPU
 PT_BAND_SPP = 2
+HEAD_STAGES = {"invrender": "MatInvSyn", "neilf": "MatNeilfSyn",
+               "recmlp": "MatRecSyn"}
+HEAD_EVAL_SPP = 256  # the '…Syn' runners' evaluation (JAX train/heads.py)
+HEAD_MODES = ("shared_prim", "per_ray_prim")  # the heads' G-buffer, specular
 
 
 def log(msg=""):
@@ -3082,6 +3098,169 @@ def phase_fields(torch, path_mesh, tmp):
     return step_n, val_n
 
 
+# ---------------------------------------------------------------------------
+# the baseline heads: InvRender, NeILF, nvdiffrec
+# ---------------------------------------------------------------------------
+
+
+def head_conf(head):
+    name = {"invrender": "syn_invrender", "neilf": "syn_neilf",
+            "recmlp": "syn_rec"}[head]
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", "reference", f"{name}.conf")
+
+
+def head_runner(head, path_mesh, exps, device="cuda", sets=()):
+    """A head's synthetic-GT runner on the export, with its reference conf
+    and `sets` (KEY=VAL) on top."""
+    from texir_code_tpu_torch.config import _parse_value, parse_file
+    from texir_code_tpu_torch.train.heads import BaselineHeadSynRunner
+
+    conf = parse_file(head_conf(head))
+    conf.put("train.path_mesh_open3d", path_mesh)
+    for kv in sets:
+        k, _, v = kv.partition("=")
+        conf.put(k, _parse_value(v))
+    return BaselineHeadSynRunner(conf, head, exps_root=exps, device=device)
+
+
+def phase_heads(torch, path_mesh, tmp):
+    """[heads]: `train --trainstage MatInvSyn | MatNeilfSyn | MatRecSyn
+    --max_epochs 1` through the port's CLI at full width on the material
+    export (IrrT of [matsyn]), evaluated at HEAD_EVAL_SPP: stage seconds,
+    ms a step, the evaluation's seconds, peak memory, the four quality
+    PSNRs (finite), B1 launches by mode (shared_prim at least once a view,
+    per_ray_prim at least once a step).  Then per head one step under
+    torch.profiler, and B1 on a step's own G-buffer and specular rays
+    (captured) against the plain walk.  Returns the two kernel rows, their
+    launches those of the three CLI runs."""
+    import glob
+
+    from texir_code_tpu_torch import cli
+    from texir_code_tpu_torch.ops.pallas_culled import culled_walk_cuda
+    from texir_code_tpu_torch.train.exp import draw_seed
+
+    exps = os.path.join(tmp, "head-exps")
+    total, rows = {}, {}
+    for head, stage in HEAD_STAGES.items():
+        culled_walk_cuda.launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cli.main(["train", "--conf", head_conf(head),
+                  "--trainstage", stage, "--max_epochs", "1",
+                  "--exps_folder", exps,
+                  "--set", f"train.path_mesh_open3d={path_mesh}"])
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        launches = dict(culled_walk_cuda.launches)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        (tpath,) = glob.glob(os.path.join(exps, f"{stage}-default", "*",
+                                          "timings.json"))
+        with open(tpath) as f:
+            tm = json.load(f)
+        m = tm["metrics"]
+        log(f"[heads] {stage} via cli, --max_epochs 1: {dt:.2f} s with "
+            f"set-up (set-up {tm['setup_s']:.2f} s, views "
+            f"{tm['views_s']:.2f} s; {tm['steps']} steps in "
+            f"{tm['step_s']:.3f} s = {tm['ms_per_step']:.3f} ms a step, the "
+            f"first {tm['first_step_s']:.3f} s; evaluation at "
+            f"{HEAD_EVAL_SPP} spp {tm['eval_s']:.2f} s); peak memory "
+            f"{tm['max_memory_allocated'] / 2**30:.3f} GiB; culled_walk "
+            f"launches {launches}")
+        log(f"[heads]   re-render psnr {m['rerender_psnr']:.4f}; novel psnr "
+            f"{m['novel_psnr']:.4f}; mapped albedo psnr "
+            f"{m['albedo_psnr_mapped']:.4f}, mapped roughness psnr "
+            f"{m['roughness_psnr_mapped']:.4f} (1 epoch, not converged)")
+        if not np.isfinite(list(m.values())).all():
+            raise SystemExit(f"[heads] {stage}: non-finite metrics {m}")
+        views = QUALITY_VIEWS - 1
+        if launches.get("shared_prim", 0) < views:
+            raise SystemExit(f"[heads] {stage}: B1 shared_prim launched "
+                             f"{launches.get('shared_prim', 0)} times, "
+                             f"under once a view")
+        if launches.get("per_ray_prim", 0) < tm["steps"]:
+            raise SystemExit(f"[heads] {stage}: B1 per_ray_prim launched "
+                             f"{launches.get('per_ray_prim', 0)} times, "
+                             f"under once a step")
+
+        r = head_runner(head, path_mesh, os.path.join(tmp, "head-profile"))
+        (v,) = r.prepare_views([0])
+        it = iter(range(10 ** 6))
+        torch.cuda.reset_peak_memory_stats()
+        wall, kern, n = profile_once(
+            torch, "heads", f"one {stage} step (full width)",
+            lambda: r.step(v, next(it)), top=5)
+        walk = sum(ms for k, ms in kern.items() if "culled_walk" in k)
+        busy = sum(kern.values())
+        log(f"[heads]   {stage} step: {n} launches, {busy:.3f} ms on the "
+            f"card (B1 {walk:.4f}), idle share "
+            f"{max(0.0, 1 - busy / wall):.3f} of {wall:.3f} ms; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if not rows:  # B1 on a step's own rays (the heads share them)
+            walks = capture_walks(torch, lambda: r.model._forward(
+                r.params, v["mvp"], v["pos"], seed=draw_seed(0)))
+            for inp in walks:
+                mode = "per_ray_prim" if inp["per_ray"] else "shared_prim"
+                if mode in rows:
+                    continue
+                rows[mode], _ = check_walk(
+                    torch, f"a {stage} step's "
+                    + ("specular rays" if inp["per_ray"] else "G-buffer"),
+                    inp, name=f"culled_walk[{mode}]@heads")
+        del r, v
+        torch.cuda.empty_cache()
+    if set(rows) != set(HEAD_MODES):
+        raise SystemExit(f"[heads] captured modes {sorted(rows)}, expected "
+                         f"{HEAD_MODES}")
+    for mode in HEAD_MODES:
+        rows[mode]["launches"] = total[mode]
+    return rows
+
+
+def phase_heads_reference(torch, path_mesh, tmp):
+    """[heads-reference]: per head, one training step (full-width networks,
+    pano 64x128) on the card against the same step on the CPU, from the
+    same initial parameters (one seed) and the card's draws: rgb relative
+    L2 1e-4, loss rel 1e-4, gradients relative L2 1e-3."""
+    from texir_code_tpu_torch.train.exp import draw_seed
+
+    for head, stage in HEAD_STAGES.items():
+        res = {}
+        draws = None
+        for d in ("cuda", "cpu"):
+            r = head_runner(head, path_mesh,
+                            os.path.join(tmp, "head-ref-" + d), device=d,
+                            sets=("train.pano_img_res=[64,128]",))
+            (v,) = r.prepare_views([0])
+            b = v["view"][0].numel() // 3
+            if draws is None:
+                draws = {k: x.cpu() for k, x in
+                         r.model.draw(draw_seed(0), b).items()}
+            t0 = time.time()
+            out = r.model._forward(r.params, v["mvp"], v["pos"],
+                                   view=v["view"], draws=draws)
+            loss = r.loss(out, v, 0)
+            loss.backward()
+            res[d] = (out["rgb"].detach().cpu().numpy(), float(loss.detach()),
+                      {k: p.grad.cpu().numpy()
+                       for k, p in r.params.named_parameters()},
+                      time.time() - t0)
+        (rg, lg, gg, tg), (rc, lc, gc, tc) = res["cuda"], res["cpu"]
+        rgb = float(np.linalg.norm(rg - rc) / np.linalg.norm(rc))
+        rel = abs(lg - lc) / abs(lc)
+        grad = max(float(np.linalg.norm(gg[k] - gc[k])
+                         / max(np.linalg.norm(gc[k]), 1e-30)) for k in gc)
+        log(f"[heads-reference] {stage} step card vs cpu (pano 64x128, "
+            f"{b} pixels, full-width networks): rgb rel L2 {rgb:.3g}; loss "
+            f"{lg:.7f} vs {lc:.7f} (rel {rel:.3g}); gradient rel L2 max "
+            f"over {len(gc)} tensors {grad:.3g}; card {tg:.2f} s, CPU "
+            f"{tc:.2f} s")
+        if not (rgb <= 1e-4 and rel <= 1e-4 and grad <= 1e-3):
+            raise SystemExit(f"[heads-reference] the {stage} step on the "
+                             f"card disagrees with the CPU")
+
+
 def main():
     import torch
 
@@ -3137,6 +3316,9 @@ def main():
                                                         tmp, syn)
         syn_path, _, _ = phase_syn_export(torch, syn, tmp)
         phase_matsyn(torch, syn_path, tmp)
+        head_rows = phase_heads(torch, syn_path, tmp)
+        phase_heads_reference(torch, syn_path, tmp)
+        log(f"[time] heads done at {time.time() - t_start:.1f} s")
         irrf_rows = phase_irrf_kernels(torch, path_mesh, tmp)
         phase_irrf_reference(torch, path_mesh, tmp)
         (irrf_rows["irrf-step"]["launches"],
@@ -3167,7 +3349,8 @@ def main():
         "per_ray_uv_seeded", "per_ray_prim", "shared_uv_visits")]
         + [fan_rows[m] for m in FAN_MODES]
         + [s_rows["unsorted"], s_rows["sorted"]]
-        + [irrf_rows["irrf-step"], irrf_rows["irrf-val"]]}))
+        + [irrf_rows["irrf-step"], irrf_rows["irrf-val"]]
+        + [head_rows[m] for m in HEAD_MODES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -55,7 +55,9 @@ def test_scan_covers_the_port():
                 ("scripts", "roughness_classes.py"),
                 ("eval", "path_tracer.py"), ("tools", "relighting_varying.py"),
                 ("tools", "padding_texture.py"), ("tools", "trans_hdr_tex.py"),
-                ("tools", "hdr2ldr.py"), ("tools", "arrange_syn.py")):
+                ("tools", "hdr2ldr.py"), ("tools", "arrange_syn.py"),
+                ("models", "material_heads.py"), ("train", "heads.py"),
+                ("scripts", "heads_quality.py")):
         assert os.path.join("texir_code_tpu_torch", *mod) in names
     assert len(names) > 20
 

@@ -213,9 +213,51 @@ def test_cli_irrt_end_to_end_cpu(apartment, tmp_path):
     assert culled_walk_cuda.launches == before  # CPU: the plain walk
 
 
-def test_cli_unported_stage_names_roadmap(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue A item 14"):
-        cli.main(["train", "--conf", _conf(), "--trainstage", "MatInv"])
+_HEAD_NAMES = {
+    # the JAX CLI's head stage names (texir_code_tpu/cli.py:104-144)
+    "MatInv": "invrender", "Inv": "invrender", "MatNeilf": "neilf",
+    "Neilf": "neilf", "MatRec": "recmlp", "RecMLP": "recmlp",
+    "MatInvSyn": "invrender", "InvSyn": "invrender",
+    "MatNeilfSyn": "neilf", "NeilfSyn": "neilf", "MatRecSyn": "recmlp",
+    "RecMLPSyn": "recmlp",
+}
+
+
+def _reached_runner(monkeypatch, name):
+    """The (runner class, head) `train --trainstage name` builds, with the
+    runners replaced by recorders."""
+    from texir_code_tpu_torch.train import heads
+
+    seen = []
+
+    def recorder(cls_name):
+        def make(conf, head, **kw):
+            seen.append((cls_name, head, kw["device"]))
+            return type("Run", (), {"run": lambda self: None})()
+        return make
+
+    for cls_name in ("BaselineHeadRunner", "BaselineHeadSynRunner"):
+        monkeypatch.setattr(heads, cls_name, recorder(cls_name))
+    assert cli.main(["train", "--conf", _conf(), "--trainstage", name,
+                     "--device", "cpu"]) == 0
+    return seen
+
+
+def test_cli_unported_stage_names_roadmap(monkeypatch):
+    """The heads were the last stages the port's CLI refused: MatInv now
+    reaches its runner instead of the ROADMAP's "not ported" exit."""
+    assert _reached_runner(monkeypatch, "MatInv") == [
+        ("BaselineHeadRunner", "invrender", "cpu")]
+    with pytest.raises(SystemExit, match="unknown train stage"):
+        cli.main(["train", "--conf", _conf(), "--trainstage", "MatFoo"])
+
+
+@pytest.mark.parametrize("name", sorted(_HEAD_NAMES))
+def test_cli_head_stage_names_reach_their_runner(monkeypatch, name):
+    cls = "BaselineHeadSynRunner" if name.endswith("Syn") else \
+        "BaselineHeadRunner"
+    assert _reached_runner(monkeypatch, name) == [
+        (cls, _HEAD_NAMES[name], "cpu")]
 
 
 def test_runner_unported_knob_raises(apartment, tmp_path):

@@ -2,8 +2,8 @@
 
 Train (reference trainer/exp_runner.py):
     python -m texir_code_tpu_torch.cli train --conf configs/x.conf \
-        --trainstage {IrrT,Mat,MatSyn,IRRF,IRF,PIL} [--irt_res 1024] \
-        [--max_epochs E] [--is_continue [--timestamp T]] \
+        --trainstage {IrrT,Mat,MatSyn,IRRF,IRF,PIL,MatInv,...} \
+        [--irt_res 1024] [--max_epochs E] [--is_continue [--timestamp T]] \
         [--set KEY=VAL ...] [--device cuda|cpu]
 
 Test (reference tester/exp_runner.py):
@@ -17,15 +17,16 @@ Demo (no dataset needed — exports a synthetic scan):
     python -m texir_code_tpu_torch.cli demo --out /tmp/demo [--device cpu]
 
 The train stages: IrrT (the irradiance-texture bake), Mat and MatSyn (the
-SVBRDF atlases; MatSyn adds the GT-material and novel-view metrics), and
-the field stages IRRF (the neural irradiance field, NIrF), IRF (the
+SVBRDF atlases; MatSyn adds the GT-material and novel-view metrics), the
+field stages IRRF (the neural irradiance field, NIrF), IRF (the
 view-dependent incident-radiance field) and PIL (the pre-integrated
-lighting field).  Stages of the JAX CLI that are not ported yet (the
-baseline heads) exit with an error naming the ROADMAP.md item that will
-port them.  The CLI runs float32 matrix products and convolutions in full
-fp32 on the card (TF32 off): the SSIM blur of the re-render metrics
-cancels catastrophically at lower precision, and the field MLPs stay in
-fp32 as in the JAX package.
+lighting field), and the baseline heads MatInv / MatNeilf / MatRec
+(InvRender, NeILF, nvdiffrec; also Inv / Neilf / RecMLP) and their
+synthetic-GT forms MatInvSyn / MatNeilfSyn / MatRecSyn (InvSyn / NeilfSyn
+/ RecMLPSyn), which evaluate at 256 specular samples.  The CLI runs
+float32 matrix products and convolutions in full fp32 on the card (TF32
+off): the SSIM blur of the re-render metrics cancels catastrophically at
+lower precision, and the field MLPs stay in fp32 as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,15 +37,6 @@ import sys
 import torch
 
 from texir_code_tpu_torch.config import _parse_value, parse_file
-
-# stages of the JAX CLI that are not ported yet → their ROADMAP.md item
-_HEADS = (
-    "MatInv", "Inv", "MatNeilf", "Neilf", "MatRec", "RecMLP",
-    "MatInvSyn", "InvSyn", "MatNeilfSyn", "NeilfSyn", "MatRecSyn",
-    "RecMLPSyn",
-)
-_NOT_PORTED = {h: "queue A item 14 (baseline heads)" for h in _HEADS}
-
 
 def _irrt(conf, args):
     from texir_code_tpu_torch.train.irt import IrrTextureRunner
@@ -92,9 +84,40 @@ def _field_stage(conf, args):
     ).run()
 
 
+# the baseline heads: this CLI's names and the reference exp_runner's
+# (trainer/exp_runner.py:55-66), as the JAX CLI maps them
+_HEAD_OF_STAGE = {
+    "MatInv": "invrender", "Inv": "invrender",
+    "MatNeilf": "neilf", "Neilf": "neilf",
+    "MatRec": "recmlp", "RecMLP": "recmlp",
+}
+_SYN_HEAD_OF_STAGE = {
+    "MatInvSyn": "invrender", "InvSyn": "invrender",
+    "MatNeilfSyn": "neilf", "NeilfSyn": "neilf",
+    "MatRecSyn": "recmlp", "RecMLPSyn": "recmlp",
+}
+
+
+def _head(conf, args):
+    from texir_code_tpu_torch.train.heads import (
+        BaselineHeadRunner,
+        BaselineHeadSynRunner,
+    )
+
+    if args.trainstage in _SYN_HEAD_OF_STAGE:
+        cls, head = BaselineHeadSynRunner, _SYN_HEAD_OF_STAGE[args.trainstage]
+    else:
+        cls, head = BaselineHeadRunner, _HEAD_OF_STAGE[args.trainstage]
+    return cls(conf, head, expname=args.expname, exps_root=args.exps_folder,
+               conf_path=args.conf, max_epochs=args.max_epochs,
+               device=args.device).run()
+
+
 TRAIN_STAGES = {"IrrT": _irrt, "Mat": _mat, "MatSyn": _mat_syn,
                 "IRRF": _field_stage, "IRF": _field_stage,
-                "PIL": _field_stage}
+                "PIL": _field_stage,
+                **{name: _head for name in (*_HEAD_OF_STAGE,
+                                            *_SYN_HEAD_OF_STAGE)}}
 
 
 def _tester(cls, conf, args):
@@ -192,13 +215,7 @@ def main(argv=None):
     else:
         stage = TRAIN_STAGES.get(args.trainstage)
         if stage is None:
-            item = _NOT_PORTED.get(args.trainstage)
-            if item is None:
-                raise SystemExit(f"unknown train stage {args.trainstage!r}")
-            raise SystemExit(
-                f"train stage {args.trainstage!r} is not ported to "
-                f"texir_code_tpu_torch yet: ROADMAP.md {item}"
-            )
+            raise SystemExit(f"unknown train stage {args.trainstage!r}")
     conf = parse_file(args.conf)
     for kv in args.overrides:
         key, sep, val = kv.partition("=")

@@ -1,7 +1,8 @@
 """Turn the JAX package's arrays (as numpy) into the port's objects.
 
 The bake's state is the packed scene; the Mat stage's is the mesh and two
-learned atlases; a field stage's is its network's weights.  These converters let a caller hand the very arrays the
+learned atlases; a field stage's or a baseline head's is its networks'
+weights.  These converters let a caller hand the very arrays the
 JAX package built (after `np.asarray`) to the port, so both packages run
 on the same scene and weights; the port's own packing is checked
 separately for equality with the JAX one.
@@ -96,26 +97,58 @@ def mesh_from_numpy(vertices, faces, uvs=None, uv_faces=None,
     )
 
 
+def _flax_leaves(tree, path=()):
+    """(path, array) of every leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flax_leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
 def field_params_from_flax(params, module: torch.nn.Module) -> dict:
     """The state dict of a `models.fields` network from a flax params tree
-    (numpy arrays, with or without its top "params" level): flax's
-    `Dense_i` {kernel [in, out], bias [out]} becomes `layers.i`
-    {weight [out, in], bias [out]}.  Shapes are checked against `module`;
-    load the result with `module.load_state_dict`."""
+    (numpy arrays, with or without its top "params" level).  A flax Dense
+    {kernel [in, out], bias [out]} becomes an `nn.Linear` {weight [out,
+    in], bias [out]}: `Dense_i` is `layers.i`, or the module names each
+    state-dict prefix's flax path in `flax_names()` (the heads' networks;
+    a path that ends in a parameter, as the hash grid's `table`, is copied
+    as it is).  An `nn.ModuleDict` (the NeILF head's {"brdf", "light"})
+    takes a dict of such trees.  Every flax leaf must land on a state-dict
+    entry of the same shape and every entry must be filled; load the
+    result with `module.load_state_dict`."""
     tree = params.get("params", params)
+    if isinstance(module, torch.nn.ModuleDict):
+        if set(tree) != set(module.keys()):
+            raise ValueError(f"expected {sorted(module.keys())}, got "
+                             f"{sorted(tree)}")
+        return {f"{name}.{k}": v for name, sub in module.items()
+                for k, v in field_params_from_flax(tree[name], sub).items()}
     want = module.state_dict()
-    n = len(module.layers)
-    names = sorted(tree, key=lambda k: int(k.split("_")[-1]))
-    if names != [f"Dense_{i}" for i in range(n)]:
-        raise ValueError(f"expected Dense_0..Dense_{n - 1}, got {names}")
+    names = (module.flax_names() if hasattr(module, "flax_names") else
+             {f"layers.{i}": (f"Dense_{i}",)
+              for i in range(len(module.layers))})
+    pairs = {}  # state-dict key → flax leaf path
+    for prefix, path in names.items():
+        if prefix in want:
+            pairs[prefix] = path
+            continue
+        pairs[f"{prefix}.weight"] = path + ("kernel",)
+        if f"{prefix}.bias" in want:
+            pairs[f"{prefix}.bias"] = path + ("bias",)
+    leaves = dict(_flax_leaves(tree))
+    if set(pairs.values()) != set(leaves) or set(pairs) != set(want):
+        raise ValueError(
+            f"the flax tree {sorted('/'.join(p) for p in leaves)} does not "
+            f"map onto the module's {sorted(want)}")
     out = {}
-    for i, name in enumerate(names):
-        for key, val in (("weight", np.asarray(tree[name]["kernel"]).T),
-                         ("bias", np.asarray(tree[name]["bias"]))):
-            ref = want[f"layers.{i}.{key}"]
-            if tuple(val.shape) != tuple(ref.shape):
-                raise ValueError(f"{name}.{key}: shape {val.shape}, the "
-                                 f"module has {tuple(ref.shape)}")
-            out[f"layers.{i}.{key}"] = torch.from_numpy(
-                np.array(val, np.float32)).to(ref.device)
+    for key, path in pairs.items():
+        val = np.asarray(leaves[path])
+        if path[-1] == "kernel":
+            val = val.T
+        ref = want[key]
+        if tuple(val.shape) != tuple(ref.shape):
+            raise ValueError(f"{'/'.join(path)}: shape {val.shape}, the "
+                             f"module's {key} has {tuple(ref.shape)}")
+        out[key] = torch.from_numpy(np.array(val, np.float32)).to(ref.device)
     return out

@@ -1,5 +1,5 @@
-"""Losses of the Mat and field stages (the port of the JAX package's `models/losses.py`,
-reference models/loss.py).
+"""Losses of the Mat and field stages and the baseline heads (the port
+of the JAX package's `models/losses.py`, reference models/loss.py).
 
 Segmentation is carried as an integer class-id image, and every per-class
 statistic (means, counts, quantiles) is a segment reduction (`index_add`),
@@ -11,6 +11,9 @@ the reference's formulas and normalizations:
   * ``seg_loss`` modes 0/1/2 — :214-295 (class-mean pull, highlight-
     quantile roughness propagation, per-room variant);
   * ``tv_loss`` — :176-212 (eroded-mask total variation);
+  * ``kl_divergence`` / ``inv_loss``, ``neilf_loss``, ``nvdiffrec_loss``
+    (and the aliases ``InvLoss`` / ``NeILFLoss`` / ``NvDiffRecLoss``) —
+    :297-466, the baseline heads' objectives;
   * ``ssim`` — :117-140 (pytorch_msssim defaults), with its Gaussian blur
     in full fp32: a reduced-precision blur (TF32 or bf16) cancels
     catastrophically in mu_aa - mu_a² and was measured to push SSIM to ~2.
@@ -334,3 +337,68 @@ def render_loss(
         ) * 0.2 * seg_weight_scale
         return direct + seg, seg
     raise ValueError(f"unknown render_loss stage: {stage}")
+
+
+# ---------------------------------------------------------------------------
+# the baseline heads' losses
+# ---------------------------------------------------------------------------
+
+
+def kl_divergence(rho: float, latent: torch.Tensor) -> torch.Tensor:
+    """Sparsity KL of sigmoid latents (reference models/loss.py:361-364):
+    `latent` is the encoder's output before its sigmoid."""
+    rho_hat = torch.clamp(torch.sigmoid(latent).mean(dim=0), 1e-6, 1 - 1e-6)
+    return (rho * torch.log(rho / rho_hat)
+            + (1 - rho) * torch.log((1 - rho) / (1 - rho_hat))).mean()
+
+
+def inv_loss(outputs: Dict[str, torch.Tensor], rgb_gt: torch.Tensor,
+             latent_pre_sigmoid: torch.Tensor, sg_rgb_weight: float = 1.0,
+             kl_weight: float = 0.01, latent_smooth_weight: float = 0.1,
+             loss_type: str = "L1") -> Dict[str, torch.Tensor]:
+    """InvRender objective (reference models/loss.py:297-396): the
+    log-domain photometric loss, the KL sparsity of the latent and the
+    smoothness of the jittered-latent decode."""
+    fn = l1 if loss_type == "L1" else l2
+    rgb_loss = fn(hdr_scale(outputs["rgb"]), hdr_scale(rgb_gt))
+    smooth = (l1(outputs["diffuse_albedo"],
+                 outputs["random_xi_diffuse_albedo"])
+              + l1(outputs["roughness"][..., 0],
+                   outputs["random_xi_roughness"][..., 0]))
+    kl = kl_divergence(0.05, latent_pre_sigmoid)
+    total = (sg_rgb_weight * rgb_loss + kl_weight * kl
+             + latent_smooth_weight * smooth)
+    return {"loss": total, "sg_rgb_loss": rgb_loss, "kl_loss": kl,
+            "latent_smooth_loss": smooth}
+
+
+def neilf_loss(outputs: Dict[str, torch.Tensor], rgb_gt: torch.Tensor,
+               rgb_grad: torch.Tensor, lambertian_weighting: float = 0.0005,
+               smoothness_weighting: float = 0.0005) -> torch.Tensor:
+    """NeILF objective (reference models/loss.py:400-437): the log-domain
+    photometric L1, the roughness-gradient smoothness gated by the image
+    gradient, and the lambertian prior.  The 1e-12 inside the square root
+    keeps the norm's gradient finite at a zero gradient (the zero-initialised
+    BRDF MLP's)."""
+    rgb_loss = l1(hdr_scale(outputs["rgb"]), hdr_scale(rgb_gt))
+    norm = torch.sqrt((outputs["brdf_grad"] ** 2).sum(dim=-1) + 1e-12)
+    smooth = (norm * torch.exp(-rgb_grad[..., 0])).mean()
+    reg = (outputs["roughness"] - 1.0).abs().mean()
+    return (rgb_loss + smoothness_weighting * smooth
+            + lambertian_weighting * reg)
+
+
+def nvdiffrec_loss(outputs: Dict[str, torch.Tensor], rgb_gt: torch.Tensor,
+                   iteration, albedo_smooth_weight: float = 0.03
+                   ) -> torch.Tensor:
+    """nvdiffrec objective (reference models/loss.py:440-466): the
+    log-domain MSE and the kd-gradient smoothness, ramped in over the
+    first 100 iterations (min(1, it / 100))."""
+    img_loss = l2(hdr_scale(outputs["rgb"]), hdr_scale(rgb_gt))
+    ramp = min(1.0, float(iteration) / 100.0)
+    return img_loss + outputs["kd_grad"].mean() * albedo_smooth_weight * ramp
+
+
+InvLoss = inv_loss
+NeILFLoss = neilf_loss
+NvDiffRecLoss = nvdiffrec_loss

@@ -52,6 +52,21 @@ def postprocessing_materials(albedo: np.ndarray, roughness: np.ndarray,
     return albedo, roughness
 
 
+def atlas_metrics(pred: np.ndarray, gt: np.ndarray, device) -> tuple:
+    """(mse, psnr, ssim) of one atlas [H, W, C] against its GT, on
+    `device`; a one-channel atlas is compared as three equal channels."""
+    from texir_code_tpu_torch.models.losses import ssim
+    from texir_code_tpu_torch.ops.shading import mse_to_psnr
+
+    p = torch.as_tensor(np.asarray(pred, np.float32), device=device)[None]
+    g = torch.as_tensor(np.asarray(gt, np.float32), device=device)[None]
+    if p.shape[-1] == 1:
+        p = p.repeat(1, 1, 1, 3)
+        g = g.repeat(1, 1, 1, 3)
+    mse = float(((p - g) ** 2).mean())
+    return (mse, float(mse_to_psnr(torch.tensor(mse))), float(ssim(p, g)))
+
+
 def _resample(x: np.ndarray, res_hw) -> np.ndarray:
     """Nearest resampling of an atlas to (h, w)."""
     rows = (np.arange(res_hw[0]) * x.shape[0]) // res_hw[0]
@@ -69,22 +84,6 @@ class MatTrainSynRunner(MatTrainRunner):
         dataset = kw.pop("dataset", None) or ImageCubeSyn(
             path_mesh, resolution=pano_res, hdr_exposure=hdr_exposure)
         super().__init__(conf, dataset=dataset, **kw)
-
-    def _metrics(self, pred: np.ndarray, gt: np.ndarray, channels: int):
-        """(mse, psnr, ssim) of one atlas against its GT, on the device."""
-        from texir_code_tpu_torch.models.losses import ssim
-        from texir_code_tpu_torch.ops.shading import mse_to_psnr
-
-        p = torch.as_tensor(np.asarray(pred, np.float32),
-                            device=self.device)[None]
-        g = torch.as_tensor(np.asarray(gt, np.float32),
-                            device=self.device)[None]
-        if channels == 1:
-            p = p.repeat(1, 1, 1, 3)
-            g = g.repeat(1, 1, 1, 3)
-        mse = float(((p - g) ** 2).mean())
-        return (mse, float(mse_to_psnr(torch.tensor(mse))),
-                float(ssim(p, g)))
 
     def evaluate_materials(self, emitter_threshold: float = 0.5
                            ) -> Dict[str, float]:
@@ -115,8 +114,8 @@ class MatTrainSynRunner(MatTrainRunner):
         # scale-invariant albedo (:440)
         s = scale_compute(gt_a, albedo)
         albedo_s = np.clip(albedo * s, 0, 1)
-        a_mse, a_psnr, a_ssim = self._metrics(albedo_s, gt_a, 3)
-        r_mse, r_psnr, r_ssim = self._metrics(rough, gt_r, 1)
+        a_mse, a_psnr, a_ssim = atlas_metrics(albedo_s, gt_a, self.device)
+        r_mse, r_psnr, r_ssim = atlas_metrics(rough, gt_r, self.device)
         out = {
             "albedo_scale": s,
             "albedo_mse": a_mse, "albedo_psnr": a_psnr, "albedo_ssim": a_ssim,
@@ -145,8 +144,10 @@ class MatTrainSynRunner(MatTrainRunner):
             })
             # the full atlas after the nearest-mapped gutter fill (what a
             # consumer of the *_padding.hdr atlases sees)
-            pa = self._metrics(pad_texture(albedo_s, valid_a), gt_a, 3)
-            pr = self._metrics(pad_texture(rough, valid_r), gt_r, 1)
+            pa = atlas_metrics(pad_texture(albedo_s, valid_a), gt_a,
+                               self.device)
+            pr = atlas_metrics(pad_texture(rough, valid_r), gt_r,
+                               self.device)
             out.update({
                 "albedo_mse_padded": pa[0], "albedo_psnr_padded": pa[1],
                 "albedo_ssim_padded": pa[2],
