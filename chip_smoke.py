@@ -12,7 +12,9 @@ against every leaf row, kernels B2/B3), the Mat step with the sampler's
 segment-sum backward (kernel S), the four testers, the BVH traversal and
 the quality run's path (the material-rendered export, IrrT, MatSyn), the
 field stages (NIrF at full width, IRF, PIL), path-traced relighting, the
-five tools and the three baseline heads (InvRender, NeILF, nvdiffrec).
+five tools, the three baseline heads (InvRender, NeILF, nvdiffrec) and
+the two alternative material models (MaterialMLP, RednerMaterialModel); on
+the building also its quality recipe cut to a smoke run.
 Phases (any failure exits non-zero; nothing is caught):
   1. device: torch's view of the card, and nvidia-smi's name and power limit;
   2. build: every CUDA kernel of the port from csrc/ (culled_walk,
@@ -145,12 +147,34 @@ Phases (any failure exits non-zero; nothing is caught):
      against the plain walk;
  40. heads-reference: one step of each head (full-width networks, pano
      64x128) on the card against the CPU from the same parameters and
-     draws: rgb rel L2 1e-4, loss rel 1e-4, gradients rel L2 1e-3.
+     draws: rgb rel L2 1e-4, loss rel 1e-4, gradients rel L2 1e-3;
+ 41. alt-models (after 40): the two alternative material models at the JAX
+     defaults on the apartment — MaterialMLP (MatNetwork 4x512, pano
+     128x256, sample_light [32, 16]) and RednerMaterialModel with
+     optim_cam (a 2048² texture per object group, pano 256x512,
+     sample_light [64, 64]), three forward + backward + Adam steps each:
+     ms a step, launches, idle share, peak memory (no hand-written kernel:
+     both trace through the BVH, as the JAX models do);
+ 42. alt-models-reference: one step of each on a band of 4 pano rows,
+     card vs CPU from the same parameters and draws (rgb rel L2 1e-4, loss
+     rel 1e-4, gradients rel L2 1e-3, Redner's pose deltas included), and
+     RenderLoss and msssim_loss card vs CPU;
+ 43. building-matsyn (after 22): the building's quality recipe
+     (texir_code_tpu_torch/scripts/building_quality.py) cut: the material
+     export with one camera a room and the novel view (gt_spp 32; B1
+     shared_uv and per_ray_prim required), IrrT at 256² (fb 16, er 8,
+     two-pass 0.25; shared_uv and per_ray_uv), `train --trainstage MatSyn
+     --max_epochs 1` through the CLI (shared_prim and per_ray_uv; the
+     log's `roomseg active: n_rooms=` above 1), `train --trainstage IRRF
+     --max_epochs 1` with a small validation (per_ray_prim); B1 against
+     its plain version on MatSyn's first specular launch and IRRF's first
+     GT-trace launch; one IRRF step of 2 points on the building card vs
+     CPU.
 Kernel launch counts are zeroed just before each main-path run (5, 6, 9,
 10, 11, 12, 13, each tester of 14, the switch-on steps of 17, each run of
-19, 20, 21, 29, the MatSyn stage of 30, 33, 34, 35, 36, each head of 39)
-and read just after; every kernel mode of that run must have run (36 runs
-none).
+19, 20, 21, 29, the MatSyn stage of 30, 33, 34, 35, 36, each head of 39,
+each run of 43) and read just after; every kernel mode of that run must
+have run (36 and 41 run none).
 Then a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
 line.  Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -240,6 +264,16 @@ HEAD_STAGES = {"invrender": "MatInvSyn", "neilf": "MatNeilfSyn",
                "recmlp": "MatRecSyn"}
 HEAD_EVAL_SPP = 256  # the '…Syn' runners' evaluation (JAX train/heads.py)
 HEAD_MODES = ("shared_prim", "per_ray_prim")  # the heads' G-buffer, specular
+# the alternative material models at the JAX defaults (texir_code_tpu/
+# models/material_mlp.py:36-46, material_redner.py:132-145)
+MLP_PANO, MLP_LIGHT = (128, 256), (32, 16)
+REDNER_TEX, REDNER_PANO, REDNER_LIGHT = 2048, (256, 512), (64, 64)
+ALT_BAND = 4  # pano rows of a view held card vs CPU
+# the building's quality recipe (texir_code_tpu_torch/scripts/
+# building_quality.py) cut for the smoke run: gt_spp and the IrrT size
+BUILDING_GT_SPP = 32
+BUILDING_SYN_IRT = 256
+BUILDING_IRRF_VAL = ("val.env_res=[64,128]", "train.val_sample_res=[16,32]")
 
 
 def log(msg=""):
@@ -2864,16 +2898,20 @@ _WALK_ARGS = ("count", "cand", "dist", "t_cap", "origins", "dx", "dy", "dz",
               "per_ray", "seed")
 
 
-def capture_walks(torch, fn):
-    """The culled-walk arguments of every launch fn() makes, as the
-    dicts check_walk takes (the launches themselves run as usual)."""
+def capture_walks(torch, fn, first_per_mode=False):
+    """The culled-walk arguments of every launch fn() makes (with
+    first_per_mode, of the first launch of each mode only), as the dicts
+    check_walk takes (the launches themselves run as usual)."""
     from texir_code_tpu_torch.ops import pallas_culled
 
     launch = pallas_culled.culled_walk_cuda
     seen = []
 
     def record(*args):
-        seen.append(dict(zip(_WALK_ARGS, args)))
+        inp = dict(zip(_WALK_ARGS, args))
+        if not (first_per_mode and walk_mode_of(inp) in map(walk_mode_of,
+                                                             seen)):
+            seen.append(inp)
         return launch(*args)
 
     record.launches = launch.launches  # the wrapper counts by its name
@@ -2934,18 +2972,20 @@ def phase_irrf_kernels(torch, path_mesh, tmp):
     return rows
 
 
-def phase_irrf_reference(torch, path_mesh, tmp):
+def phase_irrf_reference(torch, path_mesh, tmp, tag="irrf-reference",
+                         points=None):
     """One IRRF train step (GT trace, MLP, loss, backward) on the card
     against the CPU from the same weights, points and draws: GT within rel
     1e-4, loss within rel 1e-5, each parameter's gradient within relative
-    L2 1e-4."""
+    L2 1e-4.  points: the step's first `points` points (default: a whole
+    batch)."""
     from texir_code_tpu_torch.train.irrf import IRRFTrainRunner, step_seed
 
     out = {}
     state = None
     for dev in ("cuda", "cpu"):
         r = field_runner(IRRFTrainRunner, path_mesh,
-                         os.path.join(tmp, "irrf-ref-" + dev), device=dev)
+                         os.path.join(tmp, f"{tag}-{dev}"), device=dev)
         if state is None:
             state = {k: v.cpu() for k, v in
                      r.model.network.state_dict().items()}
@@ -2953,7 +2993,7 @@ def phase_irrf_reference(torch, path_mesh, tmp):
             r.model.network.load_state_dict(state)
         ds = r.train_dataset
         pts, nrm, ids = irrf_batch(torch, r, ds.points, ds.normals, 0,
-                                   r.batch_size)
+                                   points or r.batch_size)
         gt = r.model.trace_gt(pts, nrm, r.env_res, step_seed(0), ids)
         loss = r._loss(pts, nrm, step_seed(0), ids)
         loss.backward()
@@ -2965,12 +3005,13 @@ def phase_irrf_reference(torch, path_mesh, tmp):
     rel = abs(lg - lc) / abs(lc)
     grad = max(np.linalg.norm(dg[k] - dc[k]) / np.linalg.norm(dc[k])
                for k in dc)
-    log(f"[irrf-reference] IRRF step card vs cpu ({len(gg)} points, "
+    log(f"[{tag}] IRRF step card vs cpu ({len(gg)} points, "
         f"{IRRF_MODE} walk vs plain walk): GT max rel {gt_rel:.3g}; loss "
         f"{lg:.7f} vs {lc:.7f} (rel {rel:.3g}); gradient rel L2 max over "
         f"{len(dc)} tensors {grad:.3g}")
     if not (gt_rel <= 1e-4 and rel <= 1e-5 and grad <= 1e-4):
-        raise SystemExit("the IRRF step on the card disagrees with the CPU")
+        raise SystemExit(f"[{tag}] the IRRF step on the card disagrees with "
+                         f"the CPU")
 
 
 def _field_timings(exps, stage):
@@ -3261,6 +3302,404 @@ def phase_heads_reference(torch, path_mesh, tmp):
                              f"card disagrees with the CPU")
 
 
+# ---------------------------------------------------------------------------
+# the alternative material models: MaterialMLP and RednerMaterialModel
+# ---------------------------------------------------------------------------
+
+
+def alt_model(kind, syn, device):
+    """MaterialMLP, or RednerMaterialModel with optim_cam over the export's
+    camera ring, at the JAX defaults on the apartment, on `device`."""
+    if kind == "mlp":
+        from texir_code_tpu_torch.models.material_mlp import MaterialMLP
+
+        return MaterialMLP(syn.mesh, syn.hdr_texture, pano_res=MLP_PANO,
+                           sample_light=MLP_LIGHT, device=device)
+    from texir_code_tpu_torch.models.material_redner import (
+        RednerMaterialModel,
+    )
+
+    exts = []
+    for pos in syn.camera_positions(VIEWS):
+        e = np.eye(4, dtype=np.float32)
+        e[0:3, 3] = pos
+        exts.append(e)
+    return RednerMaterialModel(
+        syn.mesh, syn.hdr_texture, ids=[f"view{i:03d}" for i in range(VIEWS)],
+        extrinsics=exts, optim_cam=True, texture_res=REDNER_TEX,
+        pano_res=REDNER_PANO, sample_light=REDNER_LIGHT, device=device)
+
+
+def alt_params(torch, kind, model):
+    """The same parameters on any device, from one seed drawn on the CPU:
+    the MLP's initialisation; Redner's textures U(0.1, 0.9) (a constant
+    texture gives the pose no gradient) and its pose deltas at zero."""
+    g = torch.Generator().manual_seed(5)
+    if kind == "mlp":
+        return model.init_params(g)
+    p = model.init_params()
+    with torch.no_grad():
+        for k in ("albedo", "roughness"):
+            p[k].copy_(torch.rand(p[k].shape, generator=g) * 0.8 + 0.1)
+    return p
+
+
+def alt_named(kind, params):
+    return (dict(params.named_parameters()) if kind == "mlp"
+            else dict(params))
+
+
+def alt_step_loss(torch, kind, syn, model, params, view, target, seed=0,
+                  draws=None):
+    """A forward of `view` and the L1 of its log-domain colour to target."""
+    from texir_code_tpu_torch.ops.shading import hdr_scale
+
+    if kind == "mlp":
+        out = model.forward(params, syn.camera_positions(VIEWS)[view],
+                            seed=seed, draws=draws)
+    else:
+        out = model.forward(params, view, seed=seed, draws=draws)
+    return (hdr_scale(out["rgb"]) - hdr_scale(target)).abs().mean(), out
+
+
+def phase_alt_models(torch, syn):
+    """[alt-models]: a few forward + backward + Adam steps of each model at
+    the JAX defaults on the card (the steps of profile_once: a warm one, a
+    timed one, a profiled one): ms a step, launches, idle share, peak
+    memory, the BVH traversal's iterations and host syncs of the last
+    cast; every loss finite and every parameter moved."""
+    from texir_code_tpu_torch.ops.raycast import cast_rays_soa
+
+    labels = {
+        "mlp": f"MaterialMLP (MatNetwork 4x512, pano {MLP_PANO[0]}x"
+               f"{MLP_PANO[1]}, sample_light {list(MLP_LIGHT)})",
+        "redner": f"RednerMaterialModel (optim_cam, texture {REDNER_TEX}^2,"
+                  f" pano {REDNER_PANO[0]}x{REDNER_PANO[1]}, sample_light "
+                  f"{list(REDNER_LIGHT)})"}
+    for kind, label in labels.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        model = alt_model(kind, syn, "cuda")
+        params = alt_params(torch, kind, model)
+        named = alt_named(kind, params)
+        if kind == "mlp":
+            opt = torch.optim.Adam(params.parameters(), lr=5e-4)
+        else:  # the pose at 0.1x the textures' rate, as the reference
+            opt = torch.optim.Adam([
+                {"params": [named["albedo"], named["roughness"]], "lr": 1e-2},
+                {"params": [named["cam_rot"], named["cam_trans"]],
+                 "lr": 1e-3}])
+        before = {k: v.detach().clone() for k, v in named.items()}
+        h, w = model.pano_res
+        target = (torch.rand((h, w, 3), generator=torch.Generator()
+                             .manual_seed(6)) * 2).cuda()
+        setup = time.time() - t0
+        losses, it = [], iter(range(10 ** 6))
+
+        def step():
+            i = next(it)
+            opt.zero_grad(set_to_none=True)
+            loss, _ = alt_step_loss(torch, kind, syn, model, params,
+                                    i % VIEWS, target, seed=i)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+
+        wall, kern, n = profile_once(torch, "alt-models", f"one {label} "
+                                     f"step", step, top=5)
+        busy = sum(kern.values())
+        stats = dict(cast_rays_soa.stats)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        vals = [float(x) for x in losses]
+        moved = {k: float((v.detach() - before[k]).abs().max())
+                 for k, v in named.items()}
+        log(f"[alt-models] {label}: set-up {setup:.2f} s; {len(vals)} steps, "
+            f"a step {wall:.2f} ms wall, {n} launches, {busy:.2f} ms on the "
+            f"card, idle share {max(0.0, 1 - busy / wall):.3f}; peak memory "
+            f"{peak:.3f} GiB; the last BVH cast {stats}; losses "
+            + ", ".join(f"{v:.6f}" for v in vals))
+        if not np.isfinite(vals).all():
+            raise SystemExit(f"[alt-models] {kind}: non-finite loss {vals}")
+        still = [k for k, m in moved.items() if not m > 0]
+        if still:
+            raise SystemExit(f"[alt-models] {kind}: {still} did not move")
+        del model, params, named, opt, before
+        torch.cuda.empty_cache()
+
+
+def band_rows(kind, model, rows):
+    """Restrict a model to the pano rows `rows` of its views (their
+    directions only; the draws are sliced alike)."""
+    h, w = model.pano_res
+    if kind == "mlp":
+        model._pano_dirs = tuple(d.reshape(h, w)[rows].reshape(-1)
+                                 .contiguous() for d in model._pano_dirs)
+    else:
+        model._cam_dirs = model._cam_dirs.reshape(h, w, 3)[rows].reshape(
+            -1, 3).contiguous()
+    model.pano_res = (rows.stop - rows.start, w)
+
+
+def phase_alt_models_reference(torch, syn):
+    """[alt-models-reference]: one step of each model on a band of ALT_BAND
+    pano rows of view 1, on the card and on the CPU, from the same
+    parameters and draws (the card's hash of the full view, sliced): rgb
+    relative L2 1e-4, loss rel 1e-4, gradients relative L2 1e-3 (Redner's
+    pose deltas included); then RenderLoss (stages 0 and 2) and
+    msssim_loss on Mat-sized inputs, rel 1e-4."""
+    from texir_code_tpu_torch.models.losses import RenderLoss, msssim_loss
+
+    view = 1
+    for kind in ("mlp", "redner"):
+        res, draws = {}, None
+        for d in ("cuda", "cpu"):
+            model = alt_model(kind, syn, d)
+            h, w = model.pano_res
+            rows = slice(h // 2, h // 2 + ALT_BAND)
+            if draws is None:
+                draws = {k: v.reshape(h, w, -1)[rows].reshape(-1, 2).cpu()
+                         for k, v in model.draw(11, h * w).items()}
+            band_rows(kind, model, rows)
+            params = alt_params(torch, kind, model)
+            target = torch.rand((ALT_BAND, w, 3), generator=torch.Generator()
+                                .manual_seed(7)) * 2
+            t0 = time.time()
+            loss, out = alt_step_loss(torch, kind, syn, model, params, view,
+                                      target.to(d), draws=draws)
+            loss.backward()
+            res[d] = (out["rgb"].detach().cpu().numpy(), float(loss.detach()),
+                      {k: p.grad.cpu().numpy()
+                       for k, p in alt_named(kind, params).items()},
+                      time.time() - t0)
+            del model, params
+        (rg, lg, gg, tg), (rc, lc, gc, tc) = res["cuda"], res["cpu"]
+        rgb = float(np.linalg.norm(rg - rc) / np.linalg.norm(rc))
+        rel = abs(lg - lc) / abs(lc)
+        grads = {k: float(np.linalg.norm(gg[k] - gc[k])
+                          / max(np.linalg.norm(gc[k]), 1e-30)) for k in gc}
+        log(f"[alt-models-reference] {kind} step card vs cpu ({ALT_BAND} pano "
+            f"rows x {rc.shape[1]}, view {view}): rgb rel L2 {rgb:.3g}; loss "
+            f"{lg:.7f} vs {lc:.7f} (rel {rel:.3g}); gradient rel L2 "
+            + ", ".join(f"{k} {v:.3g}" for k, v in grads.items())
+            + f"; card {tg:.2f} s, CPU {tc:.2f} s")
+        zero = [k for k in gc if not np.abs(gc[k]).max() > 0]
+        if zero:
+            raise SystemExit(f"[alt-models-reference] {kind}: no gradient "
+                             f"for {zero}")
+        if not (rgb <= 1e-4 and rel <= 1e-4 and max(grads.values()) <= 1e-3):
+            raise SystemExit(f"[alt-models-reference] the {kind} step on the "
+                             f"card disagrees with the CPU")
+    rng = np.random.default_rng(8)
+    f, h, w = 6, PANO[1] // 4, PANO[1] // 4
+    arrays = dict(
+        rgb=rng.uniform(0, 2, (f, h, w, 3)),
+        albedo=rng.uniform(0, 1, (f, h, w, 3)),
+        roughness=rng.uniform(0, 1, (f, h, w, 1)),
+        empty_mask=rng.uniform(0, 1, (f, h, w, 1)) > 0.05,
+        gt=rng.uniform(0, 2, (f, h, w, 3)),
+        mask=rng.uniform(0, 1, (f, h, w, 1)) > 0.05,
+        seg=rng.integers(0, 9, (f, h, w)),
+        room=rng.integers(0, 3, (f, h, w)),
+        a=rng.uniform(0, 1, (1,) + PANO + (3,)),
+    )
+    arrays["b"] = np.clip(arrays["a"] + rng.normal(0, 0.1, arrays["a"].shape),
+                          0, 1)
+    vals = {}
+    for d in ("cuda", "cpu"):
+        x = {k: torch.from_numpy(np.asarray(
+            v, np.int64 if k in ("seg", "room") else np.float32)).to(d)
+            for k, v in arrays.items()}
+        preds = {k: x[k] for k in ("rgb", "albedo", "roughness",
+                                   "empty_mask")}
+        region = (x["seg"] > 0).float()[..., None]
+        vals[d] = [
+            float(RenderLoss()(x["gt"], preds, x["mask"], x["seg"], 9, 0)[0]),
+            float(RenderLoss()(x["gt"], preds, x["mask"], x["seg"], 9, 2,
+                               seg_region=region, room_id=x["room"],
+                               num_rooms=3)[0]),
+            float(msssim_loss(x["a"], x["b"]))]
+    rels = [abs(a - b) / abs(b) for a, b in zip(vals["cuda"], vals["cpu"])]
+    log(f"[alt-models-reference] RenderLoss stage 0 / 2 ({f} faces "
+        f"{h}x{w}) and msssim_loss (pano {PANO[0]}x{PANO[1]}) card vs cpu: "
+        + ", ".join(f"{a:.7f} vs {b:.7f}" for a, b in
+                    zip(vals["cuda"], vals["cpu"]))
+        + f"; rel {max(rels):.3g}")
+    if not max(rels) <= 1e-4:
+        raise SystemExit("[alt-models-reference] the losses on the card "
+                         "disagree with the CPU")
+
+
+# ---------------------------------------------------------------------------
+# the building's quality recipe, cut: material export, IrrT, MatSyn, IRRF
+# ---------------------------------------------------------------------------
+
+
+def walk_mode_of(inp):
+    from texir_code_tpu_torch.ops.pallas_culled import walk_mode
+
+    return walk_mode(inp["per_ray"], inp["emit_uv"], inp["emit_prim"],
+                     inp["seed"] is not None)
+
+
+def cli_logged(argv):
+    """cli.main(argv) with its standard output passed through and kept."""
+    import contextlib
+    import io
+
+    from texir_code_tpu_torch import cli
+
+    class Tee(io.StringIO):
+        def write(self, text):
+            sys.__stdout__.write(text)
+            sys.__stdout__.flush()
+            return super().write(text)
+
+    buf = Tee()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return buf.getvalue()
+
+
+def phase_building_matsyn(torch, syn, tmp):
+    """[building-matsyn]: the building's quality recipe
+    (scripts/building_quality.py) cut to a smoke run: the material export
+    with one camera a room and the novel view (gt_spp BUILDING_GT_SPP),
+    IrrT at BUILDING_SYN_IRT² (fb 16, er 8, two-pass 0.25) and `train
+    --trainstage MatSyn --max_epochs 1` through the port's CLI, the log's
+    `roomseg active: n_rooms=` above 1; `train --trainstage IRRF
+    --max_epochs 1` (a small validation); B1's launches by mode in each;
+    B1 against its plain version on the first specular launch of MatSyn
+    and the first GT-trace launch of IRRF; then one IRRF step card vs CPU
+    ([irrf-reference]'s limits).  Returns the two kernel rows."""
+    import glob
+    import re
+
+    from texir_code_tpu_torch.data.export import export_reference_layout
+    from texir_code_tpu_torch.ops.pallas_culled import culled_walk_cuda
+    from texir_code_tpu_torch.scripts.building_quality import (
+        Recipe,
+        building_cameras,
+    )
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    recipe = Recipe()
+    cams = building_cameras(ROOMS)
+    culled_walk_cuda.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    path_mesh = export_reference_layout(
+        syn, os.path.join(tmp, "building-syn"), pano_res=PANO,
+        gt_render="material", gt_spp=BUILDING_GT_SPP, irt_spp=IRT_SPP,
+        cameras=cams, device="cuda")
+    torch.cuda.synchronize()
+    root = os.path.dirname(os.path.dirname(path_mesh))
+    with open(os.path.join(root, "info", "novel.txt"), "w") as f:
+        f.write(f"view{len(cams) - 1:03d}\n")
+    launches = dict(culled_walk_cuda.launches)
+    log(f"[building-matsyn] material export: {len(cams)} views (one a room "
+        f"and the novel view{len(cams) - 1:03d}) at {PANO[0]}x{PANO[1]}, "
+        f"gt_spp {BUILDING_GT_SPP}, irt_spp {IRT_SPP}: "
+        f"{time.time() - t0:.2f} s; culled_walk launches {launches}")
+    _need_modes("building-matsyn", launches, ("shared_uv", "per_ray_prim"))
+
+    exps = os.path.join(tmp, "building-syn-exps")
+    sets = ["--set", f"train.path_mesh_open3d={path_mesh}"]
+    culled_walk_cuda.launches.clear()
+    t0 = time.time()
+    cli_logged(["train", "--conf", os.path.join(here, "configs",
+                                                "irt_synthetic.conf"),
+                "--trainstage", "IrrT", "--irt_res", str(BUILDING_SYN_IRT),
+                "--exps_folder", exps] + sets
+               + [x for kv in recipe.irrt_sets for x in ("--set", kv)])
+    torch.cuda.synchronize()
+    launches = dict(culled_walk_cuda.launches)
+    log(f"[building-matsyn] IrrT via cli at {BUILDING_SYN_IRT}^2 (fb 16, er "
+        f"8, two-pass 0.25): {time.time() - t0:.2f} s with set-up; "
+        f"culled_walk launches {launches}")
+    _need_modes("building-matsyn", launches, ("shared_uv", "per_ray_uv"))
+
+    culled_walk_cuda.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    log_text = []
+    first = {walk_mode_of(inp): inp for inp in capture_walks(
+        torch, lambda: log_text.append(cli_logged(
+            ["train", "--conf", os.path.join(here, "configs",
+                                             "mat_synthetic.conf"),
+             "--trainstage", "MatSyn", "--max_epochs", "1", "--exps_folder",
+             exps] + sets)), first_per_mode=True)}
+    dt = time.time() - t0
+    mat_launches = dict(culled_walk_cuda.launches)
+    rooms = [int(x) for x in re.findall(r"roomseg active: n_rooms=(\d+)",
+                                        log_text[0])]
+    (tpath,) = glob.glob(os.path.join(exps, "Mat-default", "*",
+                                      "timings.json"))
+    with open(tpath) as f:
+        tm = json.load(f)
+    mm, nm, m = tm["material_metrics"], tm["novel_metrics"], tm["metrics"]
+    steps = sum(tm[f"substage{k}"]["steps"] for k in range(3))
+    log(f"[building-matsyn] MatSyn via cli, --max_epochs 1: {dt:.2f} s with "
+        f"set-up ({steps} steps on {len(cams) - 1} training views, "
+        + ", ".join(f"substage {k} "
+                    f"{1e3 * tm[f'substage{k}']['step_s'] / tm[f'substage{k}']['steps']:.2f} ms a step"
+                    for k in range(3))
+        + f"); n_rooms {rooms}; culled_walk launches {mat_launches}")
+    log(f"[building-matsyn]   re-render psnr {m['psnr']:.4f}; novel psnr "
+        f"{nm['novel_psnr']:.4f}; mapped albedo psnr "
+        f"{mm['albedo_psnr_mapped']:.4f}, mapped roughness psnr "
+        f"{mm['roughness_psnr_mapped']:.4f} (1 epoch, not converged)")
+    if not rooms or max(rooms) <= 1:
+        raise SystemExit(f"[building-matsyn] the MatSyn log shows n_rooms "
+                         f"{rooms}, not above 1")
+    _need_modes("building-matsyn", mat_launches, ("shared_prim",
+                                                  "per_ray_uv"))
+    vals = list(m.values()) + list(nm.values()) + list(mm.values())
+    if not np.isfinite(vals).all():
+        raise SystemExit("[building-matsyn] non-finite metrics")
+    rows = {}
+    rows["per_ray_uv@building-matsyn"], _ = check_walk(
+        torch, "the building's MatSyn specular rays",
+        first["per_ray_uv"], plain_reps=0,
+        name="culled_walk[per_ray_uv]@building-matsyn")
+    rows["per_ray_uv@building-matsyn"]["launches"] = mat_launches.get(
+        "per_ray_uv", 0)
+
+    irrf_exps = os.path.join(tmp, "building-irrf")
+    argv = ["train", "--conf", os.path.join(here, IRRF_CONF),
+            "--trainstage", "IRRF", "--max_epochs", "1", "--exps_folder",
+            irrf_exps] + sets
+    for kv in BUILDING_IRRF_VAL:
+        argv += ["--set", kv]
+    culled_walk_cuda.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    first = {walk_mode_of(inp): inp for inp in capture_walks(
+        torch, lambda: cli_logged(argv), first_per_mode=True)}
+    dt = time.time() - t0
+    launches = dict(culled_walk_cuda.launches)
+    tm = _field_timings(irrf_exps, "IRRF")
+    log(f"[building-matsyn] IRRF via cli, --max_epochs 1 (validation "
+        f"{', '.join(BUILDING_IRRF_VAL)}): {dt:.2f} s with set-up; "
+        f"{tm['steps']} steps, {tm['ms_per_step']:.3f} ms a step; val_psnr "
+        f"{tm['val_metrics']['val_psnr']:.4f}; culled_walk launches "
+        f"{launches}")
+    _need_modes("building-matsyn", launches, (IRRF_MODE,))
+    if not np.isfinite([tm["last_loss"], tm["val_metrics"]["val_psnr"]]).all():
+        raise SystemExit("[building-matsyn] IRRF: non-finite loss or "
+                         "val_psnr")
+    rows["per_ray_prim@building-irrf"], _ = check_walk(
+        torch, "the building's IRRF step, 16 points x 2048", first[IRRF_MODE],
+        plain_reps=0, name=f"culled_walk[{IRRF_MODE}]@building-irrf")
+    rows["per_ray_prim@building-irrf"]["launches"] = launches.get(IRRF_MODE,
+                                                                  0)
+    # 2 points: the building's GT trace walks ~2,900 clusters a ray, and
+    # the CPU's plain walk pays for every one
+    phase_irrf_reference(torch, path_mesh, tmp, tag="building-matsyn",
+                         points=2)
+    return rows
+
+
 def main():
     import torch
 
@@ -3319,6 +3758,9 @@ def main():
         head_rows = phase_heads(torch, syn_path, tmp)
         phase_heads_reference(torch, syn_path, tmp)
         log(f"[time] heads done at {time.time() - t_start:.1f} s")
+        phase_alt_models(torch, syn)
+        phase_alt_models_reference(torch, syn)
+        log(f"[time] alternative models done at {time.time() - t_start:.1f} s")
         irrf_rows = phase_irrf_kernels(torch, path_mesh, tmp)
         phase_irrf_reference(torch, path_mesh, tmp)
         (irrf_rows["irrf-step"]["launches"],
@@ -3337,6 +3779,8 @@ def main():
             rows[mode]["launches"] = launches[mode]
         phase_building_profile(torch, dev, b, bpath, tmp)
         log(f"[time] building path done at {time.time() - t_start:.1f} s")
+        rows.update(phase_building_matsyn(torch, b["syn"], tmp))
+        log(f"[time] building MatSyn done at {time.time() - t_start:.1f} s")
     phase_reference(torch, dev, clusters, occ, syn)
     phase_mat_reference(torch, dev, syn)
     phase_error_reference(torch, dev, syn)
@@ -3350,7 +3794,9 @@ def main():
         + [fan_rows[m] for m in FAN_MODES]
         + [s_rows["unsorted"], s_rows["sorted"]]
         + [irrf_rows["irrf-step"], irrf_rows["irrf-val"]]
-        + [head_rows[m] for m in HEAD_MODES]}))
+        + [head_rows[m] for m in HEAD_MODES]
+        + [rows["per_ray_prim@building-irrf"],
+           rows["per_ray_uv@building-matsyn"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
     return 0

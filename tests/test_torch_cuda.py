@@ -1264,3 +1264,91 @@ def test_field_stage_cli_on_card(field_scan, tmp_path, stage):
         tm = json.load(f)
     assert np.isfinite(tm["last_loss"]) and tm["steps"] > 0
     assert np.isfinite(tm["val_metrics"]["val_psnr"])
+
+
+@pytest.fixture(scope="module")
+def alt_scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return make_apartment_scene(atlas_res=64, subdiv=6)
+
+
+def _alt_step(kind, syn, device):
+    """One step of an alternative material model at a small size on
+    `device`, from parameters drawn on the CPU and the same hashed draws:
+    (rgb, loss, gradients)."""
+    from texir_code_tpu_torch.models.material_mlp import MaterialMLP
+    from texir_code_tpu_torch.models.material_redner import (
+        RednerMaterialModel,
+    )
+    from texir_code_tpu_torch.ops.shading import hdr_scale
+
+    pos = syn.camera_positions(2)
+    g = torch.Generator().manual_seed(3)
+    if kind == "mlp":
+        model = MaterialMLP(syn.mesh, syn.hdr_texture, pano_res=(32, 64),
+                            sample_light=(8, 4), device=device)
+        params = model.init_params(g)
+        out = model.forward(params, pos[1], seed=5)
+        named = dict(params.named_parameters())
+    else:
+        exts = [np.eye(4, dtype=np.float32) for _ in pos]
+        for e, p in zip(exts, pos):
+            e[0:3, 3] = p
+        model = RednerMaterialModel(
+            syn.mesh, syn.hdr_texture, ids=["a", "b"], extrinsics=exts,
+            optim_cam=True, texture_res=128, pano_res=(32, 64),
+            sample_light=(8, 8), device=device)
+        named = model.init_params()
+        with torch.no_grad():
+            for k in ("albedo", "roughness"):
+                named[k].copy_(torch.rand(named[k].shape, generator=g))
+        out = model.forward(named, 1, seed=5)
+    target = torch.rand((32, 64, 3), generator=g).to(device)
+    loss = (hdr_scale(out["rgb"]) - hdr_scale(target)).abs().mean()
+    loss.backward()
+    return (out["rgb"].detach().cpu().numpy(), float(loss.detach()),
+            {k: p.grad.cpu().numpy() for k, p in named.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mlp", "redner"])
+def test_alt_model_card_matches_cpu(alt_scene, kind):
+    """MaterialMLP / RednerMaterialModel (optim_cam) on the card against
+    the CPU: rgb relative L2 1e-4, loss rel 1e-4, every gradient (the pose
+    deltas included) relative L2 1e-3."""
+    (rg, lg, gg), (rc, lc, gc) = (_alt_step(kind, alt_scene, d)
+                                  for d in ("cuda", "cpu"))
+    assert np.linalg.norm(rg - rc) <= 1e-4 * np.linalg.norm(rc)
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for k in gc:
+        assert np.abs(gc[k]).max() > 0, k
+        assert np.linalg.norm(gg[k] - gc[k]) <= 1e-3 * np.linalg.norm(gc[k]), k
+
+
+@pytest.mark.cuda
+def test_cli_prints_memory_high_water_on_card(monkeypatch, capsys):
+    """With TEXIR_PRINT_MEMORY set, a stage on the card ends by printing
+    torch.cuda.max_memory_allocated in MiB; --debug_nans runs it under
+    anomaly detection."""
+    from texir_code_tpu_torch import cli
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    seen = []
+
+    def probe(conf, args):
+        seen.append(torch.is_anomaly_enabled())
+        torch.ones(1 << 20, device="cuda")
+
+    monkeypatch.setitem(cli.TRAIN_STAGES, "Probe", probe)
+    monkeypatch.setenv("TEXIR_PRINT_MEMORY", "1")
+    conf = os.path.join(os.path.dirname(__file__), "..", "configs",
+                        "mat_synthetic.conf")
+    assert cli.main(["train", "--conf", conf, "--trainstage", "Probe",
+                     "--debug_nans"]) == 0
+    assert seen == [True]
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("device memory high-water: ")]
+    assert len(lines) == 1 and lines[0].endswith(" MiB")
+    assert int(lines[0].split()[3]) >= 4

@@ -57,7 +57,10 @@ def test_scan_covers_the_port():
                 ("tools", "padding_texture.py"), ("tools", "trans_hdr_tex.py"),
                 ("tools", "hdr2ldr.py"), ("tools", "arrange_syn.py"),
                 ("models", "material_heads.py"), ("train", "heads.py"),
-                ("scripts", "heads_quality.py")):
+                ("scripts", "heads_quality.py"), ("registry.py",),
+                ("models", "material_mlp.py"),
+                ("models", "material_redner.py"),
+                ("scripts", "building_quality.py")):
         assert os.path.join("texir_code_tpu_torch", *mod) in names
     assert len(names) > 20
 

@@ -16,6 +16,11 @@ Test (reference tester/exp_runner.py):
 Demo (no dataset needed — exports a synthetic scan):
     python -m texir_code_tpu_torch.cli demo --out /tmp/demo [--device cpu]
 
+The reference enables torch's anomaly detection globally (exp_runner.py:
+24); `--debug_nans` on train and test turns it on here.  With
+TEXIR_PRINT_MEMORY set in the environment, a stage on the card ends by
+printing the device memory high-water (`torch.cuda.max_memory_allocated`).
+
 The train stages: IrrT (the irradiance-texture bake), Mat and MatSyn (the
 SVBRDF atlases; MatSyn adds the GT-material and novel-view metrics), the
 field stages IRRF (the neural irradiance field, NIrF), IRF (the
@@ -32,6 +37,7 @@ lower precision, and the field MLPs stay in fp32 as in the JAX package.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import torch
@@ -172,6 +178,8 @@ def main(argv=None):
                          "--set train.path_mesh_open3d=./data/mesh/out1.obj")
     pt.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
+    pt.add_argument("--debug_nans", action="store_true",
+                    help="torch.autograd anomaly detection")
 
     pe = sub.add_parser("test")
     pe.add_argument("--conf", required=True)
@@ -186,6 +194,8 @@ def main(argv=None):
                     dest="overrides", help="conf override (repeatable)")
     pe.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
+    pe.add_argument("--debug_nans", action="store_true",
+                    help="torch.autograd anomaly detection")
 
     pd = sub.add_parser("demo")
     pd.add_argument("--out", required=True)
@@ -222,7 +232,11 @@ def main(argv=None):
         if not sep:
             raise SystemExit(f"--set expects KEY=VAL, got {kv!r}")
         conf.put(key.strip(), _parse_value(val.strip()))
-    stage(conf, args)
+    with torch.autograd.set_detect_anomaly(args.debug_nans):
+        stage(conf, args)
+    if os.environ.get("TEXIR_PRINT_MEMORY") and args.device.startswith("cuda"):
+        peak = torch.cuda.max_memory_allocated()
+        print(f"device memory high-water: {peak / 2**20:.0f} MiB")
     return 0
 
 

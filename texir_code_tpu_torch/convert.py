@@ -110,7 +110,8 @@ def field_params_from_flax(params, module: torch.nn.Module) -> dict:
     """The state dict of a `models.fields` network from a flax params tree
     (numpy arrays, with or without its top "params" level).  A flax Dense
     {kernel [in, out], bias [out]} becomes an `nn.Linear` {weight [out,
-    in], bias [out]}: `Dense_i` is `layers.i`, or the module names each
+    in], bias [out]}: `Dense_i` is `layers.i` (the field networks,
+    IRSGNetwork among them), or the module names each
     state-dict prefix's flax path in `flax_names()` (the heads' networks;
     a path that ends in a parameter, as the hash grid's `table`, is copied
     as it is).  An `nn.ModuleDict` (the NeILF head's {"brdf", "light"})

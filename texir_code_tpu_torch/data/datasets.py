@@ -11,8 +11,9 @@ stage, the testers and the field stages read:
     <root>/hdr/<id>/ccm.hdr                  HDR pano
     (synthetic) <root>/gt/albedo.hdr, roughness.hdr, info/novel.txt
 
-  * ImageCubeDerived — cube-face stacks + per-face MVPs (reference
-    datasets/dataset.py:352-549);
+  * ImageDerived — equirect HDR views + masks (reference
+    datasets/dataset.py:242-349);
+  * ImageCubeDerived — cube-face stacks + per-face MVPs (:352-549);
   * ImageCubeSyn — + GT materials + the held-out novel split (:669-893);
   * ImageCubeNovel — the novel-view tester's dolly trajectory (:552-666);
   * MeshPoint — uniform surface points resampled every epoch, the field
@@ -156,8 +157,8 @@ class ImageMeshPoint:
             yield {"points": self.points[sl], "normals": self.normals[sl]}
 
 
-def _pano_mask(derived_dir: str) -> np.ndarray:
-    """[H, W, 1] photo mask: the LDR pano's alpha, eroded 5×5 as uint8
+def _pano_mask(derived_dir: str, k: int = 5) -> np.ndarray:
+    """[H, W, 1] photo mask: the LDR pano's alpha, eroded k×k as uint8
     (cv2.erode: pixels outside the image count as 255)."""
     jpg = os.path.join(derived_dir, "panoImage_orig.jpg")
     if os.path.exists(jpg):
@@ -169,7 +170,7 @@ def _pano_mask(derived_dir: str) -> np.ndarray:
         mask = ldr[:, :, 3] if ldr.ndim == 3 and ldr.shape[-1] == 4 else \
             np.ones((h, w), np.float32)
     mask8 = (mask * 255).astype(np.uint8)
-    mask8 = ndimage.grey_erosion(mask8, size=(5, 5), mode="constant", cval=255)
+    mask8 = ndimage.grey_erosion(mask8, size=(k, k), mode="constant", cval=255)
     return (mask8.astype(np.float32) / 255.0)[..., None]
 
 
@@ -190,6 +191,33 @@ def _resize_nearest(img: np.ndarray, h: int, w: int) -> np.ndarray:
     cols = np.minimum((np.arange(w) * (img.shape[1] / w)).astype(int),
                       img.shape[1] - 1)
     return img[rows][:, cols]
+
+
+class ImageDerived:
+    """Equirect HDR views + their photo masks, eroded 7×7 (reference
+    :242-349)."""
+
+    def __init__(self, path_mesh: str, hdr_exposure: float = 5.0):
+        self.root = _root_from_mesh(path_mesh)
+        self.hdr_exposure = hdr_exposure
+        self.ids = read_ids(self.root)
+        self.extrinsics = read_extrinsics(self.root)[: len(self.ids)]
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        vid = self.ids[index]
+        mask = _pano_mask(os.path.join(self.root, "derived", vid), k=7)
+        color = hdrio.read_hdr(os.path.join(self.root, "hdr", vid, "ccm.hdr"))
+        color = np.clip(color, 0.0, None) * (2.0 ** self.hdr_exposure)
+        return {
+            "color": color,
+            "mask": mask,
+            "cam_to_world": self.extrinsics[index],
+            "cam_position": self.extrinsics[index][0:3, 3],
+            "id": vid,
+        }
 
 
 class ImageCubeDerived:

@@ -292,6 +292,13 @@ def plot_irf(path: str, pred: np.ndarray, gt: np.ndarray) -> None:
     write_hdr(path, np.concatenate([np.asarray(pred), np.asarray(gt)], axis=0))
 
 
+def plot_gbuffer(path: str, position: np.ndarray, normal: np.ndarray) -> None:
+    """Position / normal dump, the normal mapped to [0, 1] (reference
+    utils/plots.py:51-67)."""
+    write_hdr(path, np.concatenate(
+        [np.asarray(position), np.asarray(normal) * 0.5 + 0.5], axis=0))
+
+
 def plot_mat(path: str, rgb: np.ndarray, gt: np.ndarray) -> None:
     """Render/GT grid (reference utils/plots.py:69-85): face stacks
     [F, H, W, C] tiled horizontally, the render above the GT."""

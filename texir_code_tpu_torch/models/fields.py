@@ -8,6 +8,7 @@
   * ``IRNetwork`` — (point, direction) → RGB radiance, ReLU (:16-53);
   * ``PILNetwork`` — (point, direction, roughness) → prefiltered specular,
     LeakyReLU(0.01) (:202-239);
+  * ``IRSGNetwork`` — point → 24 spherical Gaussians, ReLU (:55-101);
   * the baseline heads' networks: ``SineLayer`` / ``BRDFMLP`` /
     ``NeILFMLP`` — SIREN with skips (:421-627); ``EnvmapMaterialNetwork``
     — InvRender's latent-32 BRDF autoencoder (:268-327);
@@ -170,6 +171,35 @@ class PILNetwork(_MLP):
         return self.mlp(torch.cat([_encode(points, self.points_multires),
                                    _encode(dirs, self.dirs_multires),
                                    roughness], dim=-1))
+
+
+class IRSGNetwork(_MLP):
+    """point → `num_lgt_sgs` spherical Gaussians, ReLU (reference
+    incidentNet.py:55-101; present in the reference, unused by its
+    runners).  Each lobe is [direction (3), λ, μ (3)]: the direction from
+    two sigmoid angles, λ = 30·sigmoid + 0.1, μ = relu."""
+
+    def __init__(self, points_multires: int = 10,
+                 dims: Sequence[int] = (128, 128, 128, 128),
+                 num_lgt_sgs: int = 24,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(_in_dim(3, points_multires), dims, num_lgt_sgs * 6,
+                         None, "lecun_normal", generator)
+        self.points_multires = points_multires
+        self.num_lgt_sgs = num_lgt_sgs
+
+    def forward(self, points: torch.Tensor) -> torch.Tensor:
+        out = self.mlp(_encode(points, self.points_multires))
+        out = out.reshape(points.shape[:-1] + (self.num_lgt_sgs, 6))
+        lobes = torch.sigmoid(out[..., :2])
+        theta = lobes[..., 0:1] * 2 * math.pi
+        phi = lobes[..., 1:2] * 2 * math.pi
+        lobe_dir = torch.cat([torch.cos(theta) * torch.sin(phi),
+                              torch.sin(theta) * torch.sin(phi),
+                              torch.cos(phi)], dim=-1)
+        lam = torch.sigmoid(out[..., 2:3]) * 30.0 + 0.1
+        mu = torch.relu(out[..., 3:6])
+        return torch.cat([lobe_dir, lam, mu], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -16,18 +16,22 @@ the reference's formulas and normalizations:
     :297-466, the baseline heads' objectives;
   * ``ssim`` — :117-140 (pytorch_msssim defaults), with its Gaussian blur
     in full fp32: a reduced-precision blur (TF32 or bf16) cancels
-    catastrophically in mu_aa - mu_a² and was measured to push SSIM to ~2.
+    catastrophically in mu_aa - mu_a² and was measured to push SSIM to ~2;
+    ``ms_ssim`` (pytorch_msssim MS_SSIM defaults), ``gradient_loss``
+    (:154-173), ``psnr_loss`` / ``ssim_loss`` / ``msssim_loss``;
+  * ``RenderLoss`` — the reference's class interface over ``render_loss``.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from texir_code_tpu_torch.ops.sampling import TINY_NUMBER
-from texir_code_tpu_torch.ops.shading import hdr_scale
+from texir_code_tpu_torch.ops.shading import hdr_scale, mse_to_psnr
 
 
 def l1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -98,6 +102,79 @@ def ssim(a: torch.Tensor, b: torch.Tensor, data_range: float = 1.0,
     if nonnegative:
         s = torch.clamp_min(s, 0.0)
     return s.mean()
+
+
+def ms_ssim(a: torch.Tensor, b: torch.Tensor, data_range: float = 1.0,
+            weights=(0.0448, 0.2856, 0.3001, 0.2363, 0.1333)) -> torch.Tensor:
+    """Multi-scale SSIM over [N, H, W, C] images (pytorch_msssim MS_SSIM
+    defaults): the contrast term at each scale, the full SSIM at the
+    coarsest, a 2× average pool between scales.  Scales at which the image
+    is under 11 px are dropped and the weights renormalised, as the JAX
+    package does."""
+    kernel = _gaussian_kernel(device=a.device)
+    c1 = (0.01 * data_range) ** 2
+    c2 = (0.03 * data_range) ** 2
+
+    def cs_and_ssim(x, y):
+        mu_x, mu_y = _blur(x, kernel), _blur(y, kernel)
+        var_x = _blur(x * x, kernel) - mu_x ** 2
+        var_y = _blur(y * y, kernel) - mu_y ** 2
+        cov = _blur(x * y, kernel) - mu_x * mu_y
+        cs = torch.clamp_min((2 * cov + c2) / (var_x + var_y + c2),
+                             0.0).mean()
+        s = torch.clamp_min(
+            (2 * mu_x * mu_y + c1) * (2 * cov + c2)
+            / ((mu_x ** 2 + mu_y ** 2 + c1) * (var_x + var_y + c2)),
+            0.0).mean()
+        return cs, s
+
+    def pool(x):
+        n, h, w, c = x.shape
+        return x[:, :h // 2 * 2, :w // 2 * 2].reshape(
+            n, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
+
+    n_levels = 1
+    size = min(a.shape[1], a.shape[2])
+    while n_levels < len(weights) and size // 2 >= 11:
+        n_levels += 1
+        size //= 2
+    used = np.asarray(weights[:n_levels], np.float64)
+    used = used / used.sum()
+
+    vals = []
+    x, y = a, b
+    for level in range(n_levels):
+        cs, s = cs_and_ssim(x, y)
+        vals.append(s if level == n_levels - 1 else cs)
+        if level < n_levels - 1:
+            x, y = pool(x), pool(y)
+    out = torch.ones((), dtype=a.dtype, device=a.device)
+    for v, w in zip(vals, used):
+        out = out * torch.pow(torch.clamp_min(v, 1e-6), float(np.float32(w)))
+    return out
+
+
+def gradient_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Finite-difference gradient matching over [N, H, W, C] (reference
+    models/loss.py:154-173, unused by its runners): the mean |Δpred - Δgt|
+    of the two-pixel differences along W and along H, averaged."""
+    h_p = pred[:, :, :-2, :] - pred[:, :, 2:, :]
+    h_g = gt[:, :, :-2, :] - gt[:, :, 2:, :]
+    v_p = pred[:, :-2, :, :] - pred[:, 2:, :, :]
+    v_g = gt[:, :-2, :, :] - gt[:, 2:, :, :]
+    return ((h_p - h_g).abs().mean() + (v_p - v_g).abs().mean()) / 2.0
+
+
+def psnr_loss(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    return -mse_to_psnr(l2(gt, pred))
+
+
+def ssim_loss(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    return 1.0 - ssim(gt, pred)
+
+
+def msssim_loss(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    return 1.0 - ms_ssim(gt, pred)
 
 
 # ---------------------------------------------------------------------------
@@ -337,6 +414,20 @@ def render_loss(
         ) * 0.2 * seg_weight_scale
         return direct + seg, seg
     raise ValueError(f"unknown render_loss stage: {stage}")
+
+
+class RenderLoss:
+    """`render_loss` behind the reference's class interface (models/
+    loss.py:55-115)."""
+
+    def __init__(self, loss_type: str = "L1", w_gradient: float = 0.0):
+        self.loss_type = loss_type
+        self.w_gradient = w_gradient
+
+    def __call__(self, gt_img, preds, gt_mask, seg_id, num_classes, stage,
+                 **kw):
+        return render_loss(gt_img, preds, gt_mask, seg_id, num_classes,
+                           stage, loss_type=self.loss_type, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -49,26 +49,16 @@ from texir_code_tpu_torch.models import fields
 from texir_code_tpu_torch.ops import shading
 from texir_code_tpu_torch.ops.gbuffer import DeviceMesh, render_gbuffer
 from texir_code_tpu_torch.ops.sampling import (
-    TINY_NUMBER,
     generate_dir_soa,
-    hammersley,
     hash_uniform,
     reflect_soa,
+    shifted_samples,
 )
 from texir_code_tpu_torch.ops.texture import (
     build_mip_pyramid,
     compute_lod,
     texture_sample,
 )
-
-
-def _shifted_samples(num: int, shift: torch.Tensor) -> torch.Tensor:
-    """[B, num, 2] Hammersley samples toroidally shifted by each row's
-    [B, 2] uniforms and clamped to [TINY, 1 - TINY] (the JAX
-    `stratified_samples` with its shift given)."""
-    base = hammersley(num, shift.device)[None]
-    return torch.clamp(torch.remainder(base + shift[:, None, :], 1.0),
-                       TINY_NUMBER, 1.0 - TINY_NUMBER)
 
 
 def _normals(u: torch.Tensor) -> torch.Tensor:
@@ -188,7 +178,7 @@ class _HeadBase:
 
         s = self.sample_light[1]
         half = generate_dir_soa(n, s, mode=self.sample_type[1], roughness=rgh,
-                                samples=_shifted_samples(s, spec_shift))
+                                samples=shifted_samples(s, spec_shift))
         light_dirs, _ = reflect_soa(vdir, half)
         b = n[0].shape[0]
         lighting = query_tbl_auto(
@@ -301,7 +291,7 @@ class NeILFMaterialModel(_HeadBase):
         # diffuse from the incident-light field (reference :182-187)
         s_diff = self.sample_light[0]
         ld = generate_dir_soa(n, s_diff, mode=self.sample_type[0],
-                              samples=_shifted_samples(s_diff,
+                              samples=shifted_samples(s_diff,
                                                        draws["diff_shift"]))
         pts_rep = torch.stack([p_[:, None].expand(b, s_diff) for p_ in pts],
                               dim=-1)

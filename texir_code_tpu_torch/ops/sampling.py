@@ -166,6 +166,15 @@ def stratified_samples(
     return torch.clamp(samples, TINY_NUMBER, 1.0 - TINY_NUMBER)
 
 
+def shifted_samples(num: int, shift: torch.Tensor) -> torch.Tensor:
+    """[B, num, 2] Hammersley samples toroidally shifted by each row's
+    [B, 2] uniforms and clamped to [TINY, 1 - TINY] (stratified_samples
+    with its shifts given: a model's injected or hashed draws)."""
+    base = hammersley(num, shift.device)[None]
+    return torch.clamp(torch.remainder(base + shift[:, None, :], 1.0),
+                       TINY_NUMBER, 1.0 - TINY_NUMBER)
+
+
 def generate_dir_soa(
     normals: Vec3s,
     num_samples: int,

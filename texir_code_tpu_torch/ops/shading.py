@@ -7,8 +7,9 @@ utils/general.py:61-112 and models/mat_nvdiffrast.py:232-279):
     ``rgb_to_intensity``, ``get_mip_level`` — the HDR-domain helpers;
   * ``fresnel_schlick_ue4``, ``smith_g``, ``ggx_d`` — the BRDF terms;
   * ``lambertian_diffuse`` (the IrT path), ``irradiance_estimator_soa`` (the
-    bake), ``irradiance_estimator`` (its AoS form, the NIrF ground truth)
-    and ``specular_estimator_soa`` (GGX importance MC).
+    bake), ``irradiance_estimator`` (its AoS form, the NIrF ground truth),
+    ``specular_estimator_soa`` (GGX importance MC) and the AoS estimators
+    ``diffuse_estimator`` / ``specular_estimator``.
 
 Everything is elementwise fp32 PyTorch; the reference's epsilon clamps are
 kept as they are — they keep backward passes finite at grazing angles.
@@ -88,6 +89,41 @@ def lambertian_diffuse(irradiance, albedo):
     """Diffuse shading from a pre-integrated irradiance (the IrT path):
     irr · albedo / π (reference models/mat_nvdiffrast.py:232)."""
     return irradiance * albedo / math.pi
+
+
+def _cdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Clamped dot product along the last axis, kept as [..., 1]."""
+    return (a * b).sum(dim=-1, keepdim=True).clamp(0.0, 1.0)
+
+
+def diffuse_estimator(lighting, light_dirs, normal, albedo,
+                      sample_type: str = "uniform"):
+    """MC diffuse reflectance, AoS, summed over the samples (not divided
+    by S; reference models/mat_nvdiffrast.py:252-258): lighting /
+    light_dirs [B, S, 3], normal / albedo [B, 3] → [B, 3].  Uniform
+    sampling: Σ L·(albedo/π)·ndl·2π; cosine sampling: Σ L·(albedo/π)·π."""
+    brdf = albedo[:, None, :] / math.pi
+    if sample_type == "cosine":
+        return (lighting * brdf * math.pi).sum(dim=1)
+    ndl = _cdot(normal[:, None, :], light_dirs)
+    return (lighting * brdf * ndl * 2.0 * math.pi).sum(dim=1)
+
+
+def specular_estimator(lighting, half, normal, view, light_dirs, roughness):
+    """GGX importance MC specular, AoS, not divided by S (the same
+    estimator as specular_estimator_soa): lighting / half / light_dirs
+    [B, S, 3], normal / view [B, 3], roughness [B, 1] → [B, 3]."""
+    n = normal[:, None, :]
+    v = view[:, None, :]
+    vdh = _cdot(half, v)
+    ndl = _cdot(n, light_dirs)
+    ndh = _cdot(n, half)
+    ndv = _cdot(n, v)
+    f = fresnel_schlick_ue4(vdh)
+    g = smith_g(ndv, ndl, roughness[:, None, :])
+    brdf = f * g / torch.clamp_min(4.0 * ndl * ndv, TINY_TINY_NUMBER)
+    weight = brdf * ndl * 4.0 * vdh / torch.clamp_min(ndh, TINY_TINY_NUMBER)
+    return (lighting * weight).sum(dim=1)
 
 
 def irradiance_estimator_soa(lighting, light_dirs, normal, num_samples: int):
