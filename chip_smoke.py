@@ -78,8 +78,9 @@ Phases (any failure exits non-zero; nothing is caught):
  18. building-export: the building with one camera per room (9 views);
  19. building-proxy: its IrrT at --irt_res 256 without and with
      train.bake_proxy_k=1024: the raw bakes must be equal;
- 20. building-slice: its IrrT at --irt_res 1024 (2048 spp) with fb 16,
-     er 8, train.two_pass_cut=0.25 and occluders (bench.py's big scene);
+ 20. building-slice: its IrrT at --irt_res 512 (2048 spp; bench.py's big
+     scene bakes 1024^2) with fb 16, er 8, train.two_pass_cut=0.25 and
+     occluders;
  21. building-mat: its Mat stage with the apartment's settings plus
      models.render.proxy_k=512 and spec_two_pass_cut=0.25;
  22. building-profile: one two-pass bake batch and one cached-view
@@ -130,8 +131,8 @@ Phases (any failure exits non-zero; nothing is caught):
      64x128, spp 16, 3 bounces, a quad light under each of the 4 cameras)
      on the export and the atlases of 10: seconds a frame, casts a view,
      rays a cast, the BVH traversal's iterations and host syncs, every
-     frame finite and lit; one view under torch.profiler (launches, idle
-     share).  No hand-written kernel runs on this path;
+     frame finite and lit; one view at 1 bounce under torch.profiler
+     (launches, idle share).  No hand-written kernel runs on this path;
  37. pathtrace-reference: one trace of a band of view 0's pixels on the
      card against the CPU from the same draws (rel L2 1e-4);
  38. tools: `relighting_varying --frames 2` on the card on the same mesh
@@ -170,11 +171,37 @@ Phases (any failure exits non-zero; nothing is caught):
      its plain version on MatSyn's first specular launch and IRRF's first
      GT-trace launch; one IRRF step of 2 points on the building card vs
      CPU.
+ The multi-device paths (texir_code_tpu_torch/parallel/, one rank per
+ device; after 33, on the apartment's export): two ranks share the card
+ over gloo, each a process of this script (`--rank-cli` runs the port's
+ CLI as one rank, `--rank-mat` the Mat steps), and a failed rank fails
+ the phase;
+ 44. spmd-bake: `train --trainstage IrrT` at [slice]'s settings as two CLI
+     processes (--coordinator, --num_processes 2, --process_id r,
+     train.spmd=true): the raw and padded textures against [slice]'s (rel
+     1e-6 on every value), each rank's shared_uv launches half of
+     [slice]'s to within one, one experiment directory;
+ 45. spmd-mat: 3 data-parallel Mat stage-2 steps at [mat]'s full width
+     (the stochastic knobs, occluders) on the two ranks under
+     deterministic algorithms, against this process's single steps from
+     the same seeds: losses rel 1e-6, the last step's gradients and the
+     atlases rel L2 1e-5, the atlases bit-equal across ranks; ms a step,
+     the gradient all-reduce's ms and bytes, peak memory; then the same
+     steps as a one-rank NCCL group, bit-equal to the single process;
+ 46. atlas-tp (in 45's ranks): the atlases row-sharded (1024 / 2048 rows a
+     rank), one exact-trilinear step against the replicated one: loss
+     rel 1e-5, gathered gradients rtol 1e-4 / atol 1e-7; peak memory;
+ 47. spmd-irrf: `train --trainstage IRRF --max_epochs 1` on two ranks
+     (MatNetwork 4x512, the validation at 64x128 x [16, 32]): one batch's
+     GT sharded against one rank's (rel 1e-6), the networks bit-equal
+     across ranks, per_ray_prim on each rank;
+ 48. dryrun: parallel.dryrun.dryrun_multichip(2, "cuda").
 Kernel launch counts are zeroed just before each main-path run (5, 6, 9,
 10, 11, 12, 13, each tester of 14, the switch-on steps of 17, each run of
 19, 20, 21, 29, the MatSyn stage of 30, 33, 34, 35, 36, each head of 39,
-each run of 43) and read just after; every kernel mode of that run must
-have run (36 and 41 run none).
+each run of 43; in each rank's process, its CLI stage in 44 and 47) and
+read just after; every kernel mode of that run must have run (36 and 41
+run none).
 Then a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
 line.  Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -217,6 +244,9 @@ BUILDING_FB, BUILDING_ER = 16, 8
 TWO_PASS_CUT, TWO_PASS_CAP = 0.25, 0.125
 BAKE_PROXY_K, MAT_PROXY_K = 1024, 512
 PROXY_IRT_RES = 256  # the proxy-on/off bakes
+# the building's bake through the CLI: bench.py's 1024^2 cut to 512^2 (a
+# quarter of the texels) to keep the whole script inside its time limit
+BUILDING_IRT_RES = 512
 BUILDING_CAM = (12.0, 1.5, 7.2)
 KERNEL_SOURCE = "texir_code_tpu_torch/csrc/culled_walk.cu"
 KERNEL_REPLACES = "texir_code_tpu/ops/pallas_culled.py:367"
@@ -1841,15 +1871,16 @@ def phase_building_proxy(torch, syn, path_mesh, tmp):
 
 
 def phase_building_slice(torch, syn, path_mesh, tmp):
-    """bench.py's big-scene bake through the port's CLI: --irt_res 1024,
-    2048 spp, fb 16, er 8, two-pass 0.25, occluders on."""
+    """bench.py's big-scene bake through the port's CLI at --irt_res
+    BUILDING_IRT_RES, 2048 spp, fb 16, er 8, two-pass 0.25, occluders on."""
     from texir_code_tpu_torch.data import hdrio
 
     dt, launches, counts, _, rays = run_building_irrt(
-        torch, syn, path_mesh, IRT_RES, tmp, "building-slice")
+        torch, syn, path_mesh, BUILDING_IRT_RES, tmp, "building-slice")
     _need_modes("building-slice", launches, ("shared_uv", "per_ray_uv"))
     irt = hdrio.read_hdr(path_mesh.replace("out1.obj", "irt.hdr"), flip=True)
-    if irt.shape != (IRT_RES, IRT_RES, 3) or not np.isfinite(irt).all():
+    if (irt.shape != (BUILDING_IRT_RES, BUILDING_IRT_RES, 3)
+            or not np.isfinite(irt).all()):
         raise SystemExit("[building-slice] irt.hdr is wrong")
     return launches, counts
 
@@ -2414,7 +2445,7 @@ def phase_pathtrace(torch, path_mesh, mat_exps):
     [mat]'s atlases: seconds a frame, casts a view, rays a cast, the
     traversal's iterations and host syncs; every frame finite and lit; no
     hand-written kernel on this path (the traversal is plain PyTorch).
-    Then one view under torch.profiler."""
+    Then one view at 1 bounce under torch.profiler."""
     import glob
 
     from texir_code_tpu_torch import cli
@@ -2474,10 +2505,18 @@ def phase_pathtrace(torch, path_mesh, mat_exps):
     if any(len(v["casts"]) != 2 * PT_BOUNCES for v in views):
         raise SystemExit("[pathtrace] a view took other than one path and "
                          "one shadow cast a bounce")
+    # the profiler's reading grows with the launches: one bounce (a path
+    # and a shadow cast, a third of a view's) keeps it to seconds
     v = views[0]
+    tracer = v["tracer"]
+    bounces, tracer.max_bounces = tracer.max_bounces, 1
     t0 = time.time()
-    profile_once(torch, "pathtrace", f"one view ({PT_SPP} spp in one cast)",
-                 lambda: v["tracer"].render_pano(v["cam"], PT_PANO, v["seed"]))
+    try:
+        profile_once(torch, "pathtrace",
+                     f"one view at 1 bounce ({PT_SPP} spp in one cast)",
+                     lambda: tracer.render_pano(v["cam"], PT_PANO, v["seed"]))
+    finally:
+        tracer.max_bounces = bounces
     log(f"[pathtrace]   profile taken and read in {time.time() - t0:.1f} s")
 
 
@@ -3700,6 +3739,538 @@ def phase_building_matsyn(torch, syn, tmp):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the multi-device paths: ranks that share the card (gloo), one NCCL rank
+# ---------------------------------------------------------------------------
+
+
+def rank_cmd(*args):
+    """The command that runs this script as one rank (`--rank-*` modes)."""
+    return [sys.executable, os.path.abspath(__file__), *map(str, args)]
+
+
+def spawn_ranks(torch, phase, cmds, timeout):
+    """Run the ranks' commands (parallel.dryrun.run_ranks: a failed rank
+    ends the others and fails the phase); returns their outputs."""
+    from texir_code_tpu_torch.parallel.dryrun import run_ranks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    try:
+        return run_ranks(cmds, timeout, env=dict(os.environ,
+                                                 OMP_NUM_THREADS="4"),
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    except RuntimeError as e:
+        raise SystemExit(f"[{phase}] {e}")
+
+
+def rank_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def params_digest(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_cli_main(out_path, argv):
+    """(a rank) `cli.main(argv)` with the B1 launch counts and the
+    collectives zeroed just before it and read just after; with a field
+    stage under spmd, also its GT trace of one batch sharded against one
+    rank's and a digest of the trained network.  Writes JSON."""
+    import torch
+
+    from texir_code_tpu_torch import cli
+    from texir_code_tpu_torch.ops.pallas_culled import culled_walk_cuda
+    from texir_code_tpu_torch.parallel import mesh as pmesh
+    from texir_code_tpu_torch.train.exp import draw_seed
+    from texir_code_tpu_torch.train.irrf import FieldRunner
+
+    seen = {}
+    run = FieldRunner.run
+
+    def run_and_check(self):
+        out = run(self)
+        torch.cuda.synchronize()
+        seen["launches"] = dict(culled_walk_cuda.launches)
+        seen["params_sha256"] = params_digest(self.model.network.parameters())
+        mesh = self.model.spmd_mesh
+        if mesh is not None:
+            ds = self.train_dataset
+            pts, nrm, ids = irrf_batch(torch, self, ds.points, ds.normals, 0,
+                                       self.batch_size)
+            gt = self.model.trace_gt(pts, nrm, self.env_res,
+                                     draw_seed(10 ** 6), ids)
+            self.model.spmd_mesh = None
+            try:
+                one = self.model.trace_gt(pts, nrm, self.env_res,
+                                          draw_seed(10 ** 6), ids)
+            finally:
+                self.model.spmd_mesh = mesh
+            seen["gt_rel"] = float((gt - one).abs().max() / one.abs().max())
+            seen["gt_bit_equal"] = bool(torch.equal(gt, one))
+        return out
+
+    FieldRunner.run = run_and_check
+    culled_walk_cuda.launches.clear()
+    pmesh.COUNTS.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    res = dict(seconds=time.time() - t0,
+               launches=dict(culled_walk_cuda.launches),
+               collectives=dict(pmesh.COUNTS),
+               peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+    res.update(seen)
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def multi_cli(torch, phase, argv, n, out_dir, timeout=600):
+    """`argv` through the port's CLI as n processes (--coordinator,
+    --num_processes n, --process_id r) sharing the card: each rank's JSON
+    (rank_cli_main) and its output."""
+    from texir_code_tpu_torch.parallel.dryrun import free_port
+
+    coord = f"127.0.0.1:{free_port()}"
+    outs = [os.path.join(out_dir, f"{phase}-rank{r}.json") for r in range(n)]
+    logs = spawn_ranks(torch, phase, [
+        rank_cmd("--rank-cli", outs[r], *argv, "--coordinator", coord,
+                 "--num_processes", n, "--process_id", r)
+        for r in range(n)], timeout)
+    for r, text in enumerate(logs):
+        line = next((l for l in text.splitlines()
+                     if l.startswith("multihost:")), None)
+        log(f"[{phase}]   rank {r}: {line}")
+        if line is None:
+            raise SystemExit(f"[{phase}] rank {r} printed no multihost line")
+    return [rank_json(p) for p in outs], logs
+
+
+def phase_spmd_bake(torch, path_mesh, tmp, slice_ref, slice_launches):
+    """[spmd-bake]: `train --trainstage IrrT` at [slice]'s settings as two
+    CLI processes (train.spmd=true) that share the card over gloo; the
+    texture against [slice]'s single-process one, each rank's shared_uv
+    launches against half of [slice]'s, one experiment directory."""
+    from texir_code_tpu_torch.data import hdrio
+
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", "irt_synthetic.conf")
+    exps = os.path.join(tmp, "exps-spmd-bake")
+    argv = ["train", "--conf", conf, "--trainstage", "IrrT", "--irt_res",
+            IRT_RES, "--exps_folder", exps, "--set",
+            f"train.path_mesh_open3d={path_mesh}", "--set",
+            f"train.sample_light=[{SPP}, 16]", "--set", "train.spmd=true"]
+    t0 = time.time()
+    ranks, _ = multi_cli(torch, "spmd-bake", argv, 2, tmp)
+    dt = time.time() - t0
+    got = {k: hdrio.read_hdr(path_mesh.replace("out1.obj", k), flip=True)
+           for k in ("0_irr_texture.hdr", "irt.hdr")}
+    # later phases read [slice]'s texture: put it back
+    for name, path in slice_ref.items():
+        with open(path, "rb") as src, open(
+                path_mesh.replace("out1.obj", name), "wb") as dst:
+            dst.write(src.read())
+    for name, tex in got.items():
+        ref = hdrio.read_hdr(slice_ref[name], flip=True)
+        diff = np.abs(tex - ref)
+        rel = float((diff / np.maximum(np.abs(ref), 1e-30)).max())
+        n_off = int((diff > 0).sum())
+        log(f"[spmd-bake]   {name}: {n_off} of {tex.size} values differ "
+            f"from [slice]'s (largest |d| {float(diff.max()):.3g}, largest "
+            f"relative {rel:.3g})")
+        if not rel <= 1e-6:
+            raise SystemExit(f"[spmd-bake] {name} differs from the "
+                             f"single-process bake")
+    stamps = os.listdir(os.path.join(exps, "IrrT-default"))
+    per_rank = [r["launches"].get("shared_uv", 0) for r in ranks]
+    log(f"[spmd-bake] IrrT via cli on 2 ranks sharing the card (gloo): "
+        f"{dt:.2f} s with start-up and set-up (ranks' stage "
+        f"{', '.join(f'{r['seconds']:.2f}' for r in ranks)} s); shared_uv "
+        f"launches a rank {per_rank} against [slice]'s {slice_launches}; "
+        f"all-reduce {ranks[0]['collectives'].get('all_reduce_bytes', 0)} "
+        f"bytes; peak {', '.join(f'{r['peak_mib']:.0f}' for r in ranks)} "
+        f"MiB; experiment directories {stamps}")
+    if len(stamps) != 1:
+        raise SystemExit(f"[spmd-bake] {len(stamps)} experiment directories")
+    if sum(per_rank) != slice_launches or any(
+            abs(n - slice_launches / 2) > 1 for n in per_rank):
+        raise SystemExit("[spmd-bake] the ranks' shared_uv launches are not "
+                         "half of [slice]'s each")
+    return per_rank
+
+
+MAT_DP_STEPS = 3
+
+
+def mat_runner_sets(torch, path_mesh, tmp, name, sets=()):
+    """mat_runner with extra conf overrides."""
+    from texir_code_tpu_torch.config import _parse_value, parse_file
+    from texir_code_tpu_torch.train.material import MatTrainRunner
+
+    conf_path, base = _mat_conf(path_mesh, PANO)
+    conf = parse_file(conf_path)
+    for kv in list(base[1::2]) + list(sets):
+        k, _, v = kv.partition("=")
+        conf.put(k.strip(), _parse_value(v.strip()))
+    return MatTrainRunner(conf, exps_root=os.path.join(tmp, name),
+                          max_epochs=1)
+
+
+def mat_views(runner):
+    runner.build_masks()
+    views, n_rooms = runner._stack_epoch_data(list(range(VIEWS)))
+    runner.check_view_order(views)
+    return views, n_rooms
+
+
+def mat_dp_steps(torch, runner, views, n_rooms):
+    """MAT_DP_STEPS stage-2 steps through the runner (views 0, 1, ...):
+    (losses, ms a step, the all-reduce's ms a step, the last step's
+    gradients)."""
+    mesh = runner.model.spmd_mesh
+    reduce_ms = []
+    if mesh is not None:
+        reduce = mesh.all_reduce_grads
+
+        def timed(tensors):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            reduce(tensors)
+            torch.cuda.synchronize()
+            reduce_ms.append(1e3 * (time.time() - t0))
+
+        mesh.all_reduce_grads = timed
+    opt, sched = mat_adam(runner)
+    losses, step_ms = [], []
+    for it in range(MAT_DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, _ = runner._step(2, views[it % len(views)], n_rooms, it, opt,
+                               sched)
+        losses.append(loss.item())
+        step_ms.append(1e3 * (time.time() - t0))
+    p = runner.params
+    return losses, step_ms, reduce_ms, (p.albedo.grad, p.roughness.grad)
+
+
+def mat_tp_loss_grads(torch, runner, views, n_rooms):
+    """One stage-2 loss and backward on view 0 (exact trilinear): (loss,
+    albedo grad, roughness grad), this rank's rows under atlas TP."""
+    p = runner.params
+    for t in (p.albedo, p.roughness):
+        t.requires_grad_(True)
+        t.grad = None
+    loss, _ = runner._loss_backward(2, views[0], n_rooms, 7)
+    grads = (p.albedo.grad.clone(), p.roughness.grad.clone())
+    for t in (p.albedo, p.roughness):
+        t.requires_grad_(False)
+        t.grad = None
+    return loss.item(), grads
+
+
+EXACT_SETS = ("models.render.mip_stochastic=false",
+              "models.render.bilinear_stochastic=false")
+
+
+def rank_mat_main(rank, world, coord, backend, path_mesh, tmp, out, modes):
+    """(a rank) the data-parallel Mat steps ("spmd") and the atlas-TP
+    step ("tp") at full width under deterministic algorithms; writes JSON
+    and, from rank 0 (or each rank for "tp"), the tensors as .npy."""
+    import torch
+
+    from texir_code_tpu_torch.ops.pallas_culled import culled_walk_cuda
+    from texir_code_tpu_torch.parallel import mesh as pmesh
+    from texir_code_tpu_torch.parallel.multihost import (
+        initialize_multihost,
+        shutdown_multihost,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    rank, world = int(rank), int(world)
+    initialize_multihost(coord, world, rank, backend=backend)
+    res = {"backend": backend}
+    try:
+        if "spmd" in modes:
+            culled_walk_cuda.launches.clear()
+            t0 = time.time()
+            base = torch.cuda.memory_allocated()
+            runner = mat_runner_sets(torch, path_mesh, tmp,
+                                     f"exps-{out}-spmd", ("train.spmd=true",))
+            views, n_rooms = mat_views(runner)
+            torch.cuda.reset_peak_memory_stats()
+            pmesh.COUNTS.clear()
+            losses, step_ms, reduce_ms, grads = mat_dp_steps(
+                torch, runner, views, n_rooms)
+            p = runner.params
+            res["spmd"] = dict(
+                losses=losses, step_ms=step_ms, reduce_ms=reduce_ms,
+                reduce_bytes=pmesh.COUNTS["all_reduce_bytes"] // MAT_DP_STEPS,
+                seconds=time.time() - t0,
+                peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20,
+                atlas_sha256=params_digest([p.albedo, p.roughness]),
+                launches=dict(culled_walk_cuda.launches),
+                shares=[[s.start, s.stop] for s in runner.model.pixel_shares(
+                    views[0]["view"]["uv"].shape[0])[0]])
+            if rank == 0:
+                for name, t in (("grad_albedo", grads[0]),
+                                ("grad_roughness", grads[1]),
+                                ("albedo", p.albedo), ("roughness",
+                                                       p.roughness)):
+                    np.save(os.path.join(tmp, f"{out}-spmd-{name}.npy"),
+                            t.detach().cpu().numpy())
+            del runner, views
+            torch.cuda.empty_cache()
+        if "tp" in modes:
+            culled_walk_cuda.launches.clear()
+            t0 = time.time()
+            base = torch.cuda.memory_allocated()
+            runner = mat_runner_sets(torch, path_mesh, tmp, f"exps-{out}-tp",
+                                     ("train.atlas_tp=true",) + EXACT_SETS)
+            views, n_rooms = mat_views(runner)
+            torch.cuda.reset_peak_memory_stats()
+            loss, grads = mat_tp_loss_grads(torch, runner, views, n_rooms)
+            res["tp"] = dict(
+                loss=loss, seconds=time.time() - t0,
+                rows=[runner.params.albedo.shape[0],
+                      runner.params.roughness.shape[0]],
+                launches=dict(culled_walk_cuda.launches),
+                peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20)
+            for name, t in zip(("albedo", "roughness"), grads):
+                np.save(os.path.join(tmp, f"{out}-tp-r{rank}-{name}.npy"),
+                        t.cpu().numpy())
+    finally:
+        shutdown_multihost()
+    with open(os.path.join(tmp, f"{out}-r{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def rel_l2_np(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def phase_spmd_mat(torch, path_mesh, tmp):
+    """[spmd-mat] the data-parallel Mat stage-2 step at the apartment's
+    full width (4 views, pano 256×512, albedo 2048², roughness 4096²,
+    sample_light [32, 16], the stochastic knobs and occluders) on two
+    ranks that share the card over gloo, MAT_DP_STEPS steps, deterministic
+    algorithms, against this process's single steps from the same seeds;
+    then the same as a one-rank NCCL group (bit-equal).  [atlas-tp] in the
+    same two ranks: the atlases row-sharded, one exact-trilinear step
+    against the replicated one.  The single references run here while the
+    ranks run.  Peak memory: a process's high-water over the steps, less
+    what it held before it built its runner (the runner's tensors
+    included)."""
+    import threading
+
+    from texir_code_tpu_torch.parallel.dryrun import free_port, run_ranks
+
+    def ranks_cmds(out, world, backend, modes):
+        coord = f"127.0.0.1:{free_port()}"
+        return [rank_cmd("--rank-mat", r, world, coord, backend, path_mesh,
+                         tmp, out, modes) for r in range(world)]
+
+    t0 = time.time()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # the two gloo ranks start while this process runs the references
+    result = {}
+
+    def ranks_thread():
+        try:
+            result["logs"] = run_ranks(
+                ranks_cmds("dp", 2, "gloo", "spmd,tp"), 900,
+                env=dict(os.environ, OMP_NUM_THREADS="4"),
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+        except RuntimeError as e:
+            result["error"] = str(e)
+
+    th = threading.Thread(target=ranks_thread)
+    th.start()
+    torch.use_deterministic_algorithms(True)
+    try:
+        base = torch.cuda.memory_allocated()
+        runner = mat_runner_sets(torch, path_mesh, tmp, "exps-dp-one",
+                                 ("train.spmd=false",))
+        views, n_rooms = mat_views(runner)
+        torch.cuda.reset_peak_memory_stats()
+        m = runner.model
+        m.mip_stochastic = m.bilinear_stochastic = False
+        tp_loss, tp_grads = mat_tp_loss_grads(torch, runner, views, n_rooms)
+        tp_grads = [g.cpu().numpy() for g in tp_grads]
+        tp_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        m.mip_stochastic = m.bilinear_stochastic = True
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, _, grads = mat_dp_steps(torch, runner, views,
+                                                 n_rooms)
+        one = dict(losses=losses, step_ms=step_ms,
+                   peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20,
+                   grads=[g.cpu().numpy() for g in grads],
+                   atlases=[runner.params.albedo.detach().cpu().numpy(),
+                            runner.params.roughness.detach().cpu().numpy()])
+        del runner, views, m
+    finally:
+        torch.use_deterministic_algorithms(False)
+    t_ref = time.time() - t0
+    th.join()
+    if "error" in result:
+        raise SystemExit(f"[spmd-mat] {result['error']}")
+    t_ranks = time.time() - t0
+    ranks = [rank_json(os.path.join(tmp, f"dp-r{r}.json")) for r in (0, 1)]
+    log(f"[spmd-mat] the single-process references {t_ref:.2f} s; the two "
+        f"gloo ranks {t_ranks:.2f} s with start-up and set-up (spmd part "
+        f"{', '.join(f'{r['spmd']['seconds']:.2f}' for r in ranks)} s)")
+
+    def check_dp(tag, rs, out, exact):
+        sp = [r["spmd"] for r in rs]
+        ga = np.load(os.path.join(tmp, f"{out}-spmd-grad_albedo.npy"))
+        gr = np.load(os.path.join(tmp, f"{out}-spmd-grad_roughness.npy"))
+        al = np.load(os.path.join(tmp, f"{out}-spmd-albedo.npy"))
+        ro = np.load(os.path.join(tmp, f"{out}-spmd-roughness.npy"))
+        loss_rel = max(abs(a - b) / abs(b) for s in sp
+                       for a, b in zip(s["losses"], one["losses"]))
+        g_rel = (rel_l2_np(ga, one["grads"][0]), rel_l2_np(gr, one["grads"][1]))
+        a_rel = (rel_l2_np(al, one["atlases"][0]),
+                 rel_l2_np(ro, one["atlases"][1]))
+        same = len({s["atlas_sha256"] for s in sp}) == 1
+        for r, s in enumerate(sp):
+            log(f"[{tag}]   rank {r}: ms a step "
+                f"{', '.join(f'{x:.2f}' for x in s['step_ms'])} (the first "
+                f"sets up), the gradient all-reduce "
+                f"{', '.join(f'{x:.2f}' for x in s['reduce_ms'])} ms a step "
+                f"for {s['reduce_bytes']} bytes, peak {s['peak_mib']:.0f} "
+                f"MiB, pixels {s['shares']}; culled_walk launches (masks, "
+                f"views, steps) {s['launches']}")
+            _need_modes(tag, s["launches"], ("shared_prim", "per_ray_uv"))
+        log(f"[{tag}]   single process: ms a step "
+            f"{', '.join(f'{x:.2f}' for x in one['step_ms'])}, peak "
+            f"{one['peak_mib']:.0f} MiB; losses {sp[0]['losses']} vs "
+            f"{one['losses']}: largest rel {loss_rel:.3g}; last step's "
+            f"gradient rel L2 albedo {g_rel[0]:.3g}, roughness "
+            f"{g_rel[1]:.3g}; atlases after {MAT_DP_STEPS} steps rel L2 "
+            f"{a_rel[0]:.3g}, {a_rel[1]:.3g}; bit-equal across ranks: {same}")
+        if not same:
+            raise SystemExit(f"[{tag}] the atlases differ across ranks")
+        if exact:
+            bit = (loss_rel == 0 and np.array_equal(ga, one["grads"][0])
+                   and np.array_equal(gr, one["grads"][1])
+                   and np.array_equal(al, one["atlases"][0])
+                   and np.array_equal(ro, one["atlases"][1]))
+            if not bit:
+                raise SystemExit(f"[{tag}] the one-rank group is not "
+                                 f"bit-equal to the single process")
+        elif not (loss_rel <= 1e-6 and max(g_rel) <= 1e-5
+                  and max(a_rel) <= 1e-5):
+            raise SystemExit(f"[{tag}] the data-parallel steps disagree "
+                             f"with the single process's")
+
+    check_dp("spmd-mat", ranks, "dp", exact=False)
+
+    # [atlas-tp], from the same two ranks
+    tp = [r["tp"] for r in ranks]
+    got = [np.concatenate([np.load(os.path.join(
+        tmp, f"dp-tp-r{r}-{name}.npy")) for r in (0, 1)])
+        for name in ("albedo", "roughness")]
+    loss_rel = max(abs(t["loss"] - tp_loss) / abs(tp_loss) for t in tp)
+    err = [float(np.max(np.abs(g - ref) / (1e-7 + 1e-4 * np.abs(ref))))
+           for g, ref in zip(got, tp_grads)]
+    log(f"[atlas-tp] one exact-trilinear stage-2 step with the atlases "
+        f"row-sharded ({tp[0]['rows']} rows a rank): losses "
+        f"{[t['loss'] for t in tp]} vs replicated {tp_loss} (rel "
+        f"{loss_rel:.3g}); gathered gradients' largest |d| / (1e-7 + 1e-4 "
+        f"|ref|): albedo {err[0]:.3g}, roughness {err[1]:.3g}; rel L2 "
+        f"{rel_l2_np(got[0], tp_grads[0]):.3g}, "
+        f"{rel_l2_np(got[1], tp_grads[1]):.3g}; peak "
+        f"{', '.join(f'{t['peak_mib']:.0f}' for t in tp)} MiB a rank vs "
+        f"{tp_peak:.0f} replicated; {', '.join(f'{t['seconds']:.2f}' for t in tp)}"
+        f" s a rank with set-up; culled_walk launches a rank (masks, views, "
+        f"the step) {[t['launches'] for t in tp]}")
+    for t in tp:
+        _need_modes("atlas-tp", t["launches"], ("shared_prim", "per_ray_uv"))
+    if not (loss_rel <= 1e-5 and max(err) <= 1.0):
+        raise SystemExit("[atlas-tp] the row-sharded step disagrees with "
+                         "the replicated one")
+
+    # the same data-parallel steps as a one-rank NCCL group
+    t1 = time.time()
+    cmds = ranks_cmds("nccl", 1, "nccl", "spmd")
+    spawn_ranks(torch, "spmd-mat", cmds, 600)
+    nccl = [rank_json(os.path.join(tmp, "nccl-r0.json"))]
+    log(f"[spmd-mat] one-rank NCCL group ({nccl[0]['backend']}): "
+        f"{time.time() - t1:.2f} s with start-up and set-up")
+    check_dp("spmd-mat", nccl, "nccl", exact=True)
+    return time.time() - t0
+
+
+def phase_spmd_irrf(torch, path_mesh, tmp):
+    """[spmd-irrf] `train --trainstage IRRF --max_epochs 1` on two ranks
+    sharing the card (MatNetwork 4×512; the validation cut to 64×128 ×
+    [16, 32]): each rank traces half of each step's GT (B1 per_ray_prim);
+    one batch's GT sharded against one rank's; the networks bit-equal
+    across ranks after the run."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = ["train", "--conf", os.path.join(here, IRRF_CONF),
+            "--trainstage", "IRRF", "--max_epochs", "1", "--exps_folder",
+            os.path.join(tmp, "exps-spmd-irrf"), "--set",
+            f"train.path_mesh_open3d={path_mesh}", "--set",
+            "train.spmd=true"]
+    for kv in IRF_VAL:
+        argv += ["--set", kv]
+    t0 = time.time()
+    ranks, _ = multi_cli(torch, "spmd-irrf", argv, 2, tmp)
+    dt = time.time() - t0
+    for r, res in enumerate(ranks):
+        log(f"[spmd-irrf]   rank {r}: stage {res['seconds']:.2f} s, "
+            f"culled_walk launches {res['launches']}, all_gather "
+            f"{res['collectives'].get('all_gather', 0)} calls "
+            f"{res['collectives'].get('all_gather_bytes', 0)} bytes; one "
+            f"batch's GT vs one rank's: rel {res['gt_rel']:.3g} (bit-equal "
+            f"{res['gt_bit_equal']}); peak {res['peak_mib']:.0f} MiB")
+    same = len({r["params_sha256"] for r in ranks}) == 1
+    log(f"[spmd-irrf] IRRF via cli on 2 ranks: {dt:.2f} s with start-up; "
+        f"networks bit-equal across ranks: {same}")
+    for r in ranks:
+        _need_modes("spmd-irrf", r["launches"], (IRRF_MODE,))
+    if not same or any(r["gt_rel"] > 1e-6 for r in ranks):
+        raise SystemExit("[spmd-irrf] the sharded GT or the networks "
+                         "disagree")
+    return [r["launches"].get(IRRF_MODE, 0) for r in ranks]
+
+
+def phase_dryrun(torch):
+    """[dryrun] parallel.dryrun.dryrun_multichip(2, "cuda")."""
+    from texir_code_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    try:
+        res = dryrun_multichip(2, "cuda")
+    except RuntimeError as e:
+        raise SystemExit(f"[dryrun] {e}")
+    log(f"[dryrun] dryrun_multichip(2, 'cuda'): {res} in "
+        f"{time.time() - t0:.2f} s")
+
+
+def rank_main(argv):
+    """The `--rank-*` modes: this script as one rank of a phase."""
+    if argv[0] == "--rank-cli":
+        return rank_cli_main(argv[1], argv[2:])
+    if argv[0] == "--rank-mat":
+        return rank_mat_main(*argv[1:8], modes=argv[8].split(","))
+    raise SystemExit(f"unknown mode {argv[0]!r}")
+
+
 def main():
     import torch
 
@@ -3711,6 +4282,8 @@ def main():
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e})", file=sys.stderr)
         return 2
+    if len(sys.argv) > 1 and sys.argv[1].startswith("--rank-"):
+        return rank_main(sys.argv[1:])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3731,6 +4304,13 @@ def main():
         path_mesh = phase_export(torch, syn, tmp)
         rows["shared_uv"]["launches"] = phase_slice(torch, syn, path_mesh,
                                                     IRT_RES, tmp)
+        # [slice]'s textures, for [spmd-bake]
+        slice_ref = {}
+        for tex in ("0_irr_texture.hdr", "irt.hdr"):
+            slice_ref[tex] = os.path.join(tmp, "slice-" + tex)
+            with open(path_mesh.replace("out1.obj", tex), "rb") as src, \
+                    open(slice_ref[tex], "wb") as dst:
+                dst.write(src.read())
         launches, _ = phase_mat(torch, path_mesh, tmp)
         for mode in ("shared_prim", "per_ray_uv"):
             rows[mode]["launches"] = launches[mode]
@@ -3767,6 +4347,20 @@ def main():
          irrf_rows["irrf-val"]["launches"]) = phase_fields(torch, path_mesh,
                                                            tmp)
         log(f"[time] field stages done at {time.time() - t_start:.1f} s")
+        t_multi = time.time()
+        phase_spmd_bake(torch, path_mesh, tmp, slice_ref,
+                        rows["shared_uv"]["launches"])
+        log(f"[time] [spmd-bake] {time.time() - t_multi:.1f} s")
+        t_phase = time.time()
+        phase_spmd_mat(torch, path_mesh, tmp)
+        log(f"[time] [spmd-mat] and [atlas-tp] {time.time() - t_phase:.1f} s")
+        t_phase = time.time()
+        phase_spmd_irrf(torch, path_mesh, tmp)
+        log(f"[time] [spmd-irrf] {time.time() - t_phase:.1f} s")
+        t_phase = time.time()
+        phase_dryrun(torch)
+        log(f"[time] [dryrun] {time.time() - t_phase:.1f} s; the multi-rank "
+            f"phases {time.time() - t_multi:.1f} s")
         log(f"[time] apartment path done at {time.time() - t_start:.1f} s")
         bpath = phase_building_export(torch, b["syn"], tmp)
         launches = phase_building_proxy(torch, b["syn"], bpath, tmp)

@@ -60,7 +60,10 @@ def test_scan_covers_the_port():
                 ("scripts", "heads_quality.py"), ("registry.py",),
                 ("models", "material_mlp.py"),
                 ("models", "material_redner.py"),
-                ("scripts", "building_quality.py")):
+                ("scripts", "building_quality.py"),
+                ("parallel", "multihost.py"), ("parallel", "mesh.py"),
+                ("parallel", "bake.py"), ("parallel", "atlas_tp.py"),
+                ("parallel", "dryrun.py")):
         assert os.path.join("texir_code_tpu_torch", *mod) in names
     assert len(names) > 20
 

@@ -261,14 +261,31 @@ def test_cli_head_stage_names_reach_their_runner(monkeypatch, name):
 
 
 def test_runner_unported_knob_raises(apartment, tmp_path):
+    """train.spmd=true in one process: the sharded baker with a one-rank
+    mesh, whose raw bake equals the plain baker's bit for bit."""
+    from texir_code_tpu_torch.parallel.bake import ShardedIrradianceBaker
+    from texir_code_tpu_torch.train.irt import IrrTextureRunner
+    from texir_code_tpu_torch.config import _parse_value, parse_file
+
     path = _write_scene(apartment, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main([
-            "train", "--conf", _conf(), "--trainstage", "IrrT",
-            "--exps_folder", str(tmp_path / "exps"), "--device", "cpu",
-            "--set", f"train.path_mesh_open3d={path}",
-            "--set", "train.spmd=true",
-        ])
+    raws = []
+    for spmd in ("true", "false"):
+        conf = parse_file(_conf())
+        for kv in (f"train.path_mesh_open3d={path}",
+                   "train.sample_light=[64, 16]", "train.texel_batch=128",
+                   f"train.spmd={spmd}"):
+            k, _, v = kv.partition("=")
+            conf.put(k, _parse_value(v))
+        runner = IrrTextureRunner(conf, exps_root=str(tmp_path / "exps"),
+                                  texture_res=16, denoise=False,
+                                  device="cpu")
+        assert isinstance(runner.baker, ShardedIrradianceBaker) == (
+            spmd == "true")
+        runner.run()
+        raws.append(hdrio.read_hdr(
+            path.replace("out1.obj", "0_irr_texture.hdr"), flip=True))
+    assert raws[0].any()
+    np.testing.assert_array_equal(raws[0], raws[1])
 
 
 def test_seed_everything_returns_generator():

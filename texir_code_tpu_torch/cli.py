@@ -4,7 +4,16 @@ Train (reference trainer/exp_runner.py):
     python -m texir_code_tpu_torch.cli train --conf configs/x.conf \
         --trainstage {IrrT,Mat,MatSyn,IRRF,IRF,PIL,MatInv,...} \
         [--irt_res 1024] [--max_epochs E] [--is_continue [--timestamp T]] \
-        [--set KEY=VAL ...] [--device cuda|cpu]
+        [--set KEY=VAL ...] [--device cuda|cpu] \
+        [--coordinator HOST:PORT --num_processes N --process_id I]
+
+Several processes (parallel/, one rank per device): every rank runs the
+same `train` command with its own --process_id; `--device cuda` is then
+this rank's card (cuda:(rank % device count)).  NCCL joins ranks that
+have a card each, gloo the CPU and ranks that share a card; the group is
+destroyed when the stage ends.  IrrT splits its texel batches, Mat /
+MatSyn their pixels (or, with train.atlas_tp, their atlas rows) and the
+field stages their GT traces over the ranks; rank 0 writes the files.
 
 Test (reference tester/exp_runner.py):
     python -m texir_code_tpu_torch.cli test --conf configs/x.conf \
@@ -180,6 +189,12 @@ def main(argv=None):
                     help="torch device; 'cpu' runs the plain PyTorch path")
     pt.add_argument("--debug_nans", action="store_true",
                     help="torch.autograd anomaly detection")
+    # several processes: every rank runs the same command with its own
+    # --process_id (parallel/multihost.py)
+    pt.add_argument("--coordinator", default=None,
+                    help="rank 0's rendezvous address host:port")
+    pt.add_argument("--num_processes", type=int, default=None)
+    pt.add_argument("--process_id", type=int, default=None)
 
     pe = sub.add_parser("test")
     pe.add_argument("--conf", required=True)
@@ -226,17 +241,42 @@ def main(argv=None):
         stage = TRAIN_STAGES.get(args.trainstage)
         if stage is None:
             raise SystemExit(f"unknown train stage {args.trainstage!r}")
-    conf = parse_file(args.conf)
-    for kv in args.overrides:
-        key, sep, val = kv.partition("=")
-        if not sep:
-            raise SystemExit(f"--set expects KEY=VAL, got {kv!r}")
-        conf.put(key.strip(), _parse_value(val.strip()))
-    with torch.autograd.set_detect_anomaly(args.debug_nans):
-        stage(conf, args)
-    if os.environ.get("TEXIR_PRINT_MEMORY") and args.device.startswith("cuda"):
-        peak = torch.cuda.max_memory_allocated()
-        print(f"device memory high-water: {peak / 2**20:.0f} MiB")
+    multi = args.command == "train" and (args.coordinator
+                                         or args.num_processes)
+    if multi:
+        from texir_code_tpu_torch.parallel.multihost import (
+            initialize_multihost,
+            pick_backend,
+        )
+
+        backend = ("gloo" if args.device == "cpu"
+                   else pick_backend(args.num_processes or 1))
+        rank, world = initialize_multihost(
+            args.coordinator, args.num_processes, args.process_id,
+            backend=backend)
+        print(f"multihost: process {rank}/{world} ({backend})", flush=True)
+        if args.device == "cuda" and torch.cuda.is_available():
+            args.device = f"cuda:{torch.cuda.current_device()}"
+    try:
+        conf = parse_file(args.conf)
+        for kv in args.overrides:
+            key, sep, val = kv.partition("=")
+            if not sep:
+                raise SystemExit(f"--set expects KEY=VAL, got {kv!r}")
+            conf.put(key.strip(), _parse_value(val.strip()))
+        with torch.autograd.set_detect_anomaly(args.debug_nans):
+            stage(conf, args)
+        if (os.environ.get("TEXIR_PRINT_MEMORY")
+                and args.device.startswith("cuda")):
+            peak = torch.cuda.max_memory_allocated()
+            print(f"device memory high-water: {peak / 2**20:.0f} MiB")
+    finally:
+        if multi:
+            from texir_code_tpu_torch.parallel.multihost import (
+                shutdown_multihost,
+            )
+
+            shutdown_multihost()
     return 0
 
 

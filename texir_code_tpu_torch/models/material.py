@@ -30,11 +30,26 @@ stochastic sampling knobs, the mip-level and bilinear-corner uniforms) is
 a counter hash of (seed, global pixel id) — `draw_spec_shift` — so a
 pixel's draw does not depend on batching.  Torch cannot reproduce JAX's
 threefry keys; parity tests pass JAX's own draws as `spec_shift`.
+
+Multi-device (parallel/, one rank per device), as the JAX package:
+  * `spmd_mesh` (data parallel): each rank traces its share of the
+    G-buffer's exit groups and gathers the hits, then shades its share of
+    the pixels (cut at the specular walk's exit groups, so every ray keeps
+    its unsharded candidate list) with draws keyed by the global pixel id;
+    `all_gather_rows` assembles the outputs, and its backward hands each
+    rank its own pixels' cotangent.  The caller all-reduces the atlas
+    gradients (`DeviceMesh.all_reduce_grads`).
+  * `atlas_mesh` (tensor parallel): `params` hold this rank's rows of
+    each atlas and the three material lookups go through
+    `parallel.atlas_tp.tp_sample_materials` (exact trilinear: the
+    stochastic knobs draw nothing); the rest of the step is replicated.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import warnings
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -140,7 +155,11 @@ class MaterialModel:
         sample_light: (diffuse spp, specular spp) — diffuse unused with IrT.
         hdr_exposure: scales the TBL atlas by 2**hdr_exposure.
         max_mip_level: defaults to get_mip_level(8192)=13.
-        spmd_mesh / atlas_mesh: multi-device paths, not ported.
+        spmd_mesh: optional parallel.mesh.DeviceMesh — the pixel axis is
+            split over its ranks (data parallel; parameters replicated).
+        atlas_mesh: optional parallel.mesh.DeviceMesh — the material
+            atlases are row-sharded over its ranks (tensor parallel).
+            Mutually exclusive with spmd_mesh.
         device: where every scene tensor lives (default: the card).
         """
         from texir_code_tpu_torch.geometry.bvh import build_bvh
@@ -152,11 +171,10 @@ class MaterialModel:
         from texir_code_tpu_torch.ops.fan_raycast import FanScene
         from texir_code_tpu_torch.ops.pallas_culled import ClusterScene
 
-        if spmd_mesh is not None or atlas_mesh is not None:
-            raise NotImplementedError(
-                "spmd_mesh/atlas_mesh: the multi-device Mat step is not "
-                "ported yet (ROADMAP.md queue A item 16)"
-            )
+        if spmd_mesh is not None and atlas_mesh is not None:
+            raise ValueError("spmd_mesh and atlas_mesh are mutually exclusive")
+        self.spmd_mesh = spmd_mesh
+        self.atlas_mesh = atlas_mesh
         self.device = resolve_device(device)
         self.cube_res = int(pano_res[1] // 4)
         self.sample_light = tuple(sample_light)
@@ -208,6 +226,12 @@ class MaterialModel:
             raise ValueError("bilinear_stochastic requires mip_stochastic=True")
         if self.specular_fetch not in ("prefiltered", "exact"):
             raise ValueError(f"unknown specular_fetch {self.specular_fetch!r}")
+        if self.atlas_mesh is not None and (self.mip_stochastic
+                                            or self.bilinear_stochastic):
+            warnings.warn(
+                "stochastic sampling knobs are ignored under atlas tensor-"
+                "parallelism: tp_sample_materials is exact-trilinear (no "
+                "rng); the forward skips drawing the unused uniforms")
 
         self._rgbe_pre = rgbe_prefilter(self.tbl.planes, 2)
         self._rgbe_pre_vhl = rgbe_prefilter(self.tbl_vhl.planes, 2)
@@ -235,17 +259,42 @@ class MaterialModel:
     @property
     def num_uniforms(self) -> int:
         """Uniforms per pixel: the two sample-shift components, then the
-        stochastic-LOD uniform, then the two bilinear-corner uniforms."""
+        stochastic-LOD uniform, then the two bilinear-corner uniforms (none
+        of the three under atlas tensor parallelism)."""
+        if self.atlas_mesh is not None:
+            return 2
         if self.bilinear_stochastic:
             return 5
         return 3 if self.mip_stochastic else 2
 
-    def draw_spec_shift(self, seed: int, num_pixels: int) -> torch.Tensor:
+    def draw_spec_shift(self, seed: int, num_pixels: int,
+                        ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[B, num_uniforms] per-pixel uniforms, a counter hash of (seed,
-        global pixel id, column)."""
-        ids = torch.arange(num_pixels, device=self.device)
+        global pixel id, column); the pixel ids are 0..num_pixels-1 unless
+        `ids` gives them."""
+        if ids is None:
+            ids = torch.arange(num_pixels, device=self.device)
         cols = torch.arange(self.num_uniforms, device=self.device)
         return hash_uniform(seed, ids, cols)
+
+    def atlas_shape(self, atlas: torch.Tensor) -> Tuple[int, int]:
+        """(H, W) of the whole atlas whose tensor (under atlas tensor
+        parallelism: this rank's rows) is `atlas`."""
+        rows = atlas.shape[0] * (self.atlas_mesh.size if self.atlas_mesh
+                                 else 1)
+        return rows, atlas.shape[1]
+
+    def pixel_shares(self, b: int):
+        """(every rank's slice of the b pixels, the specular walk's row
+        width) under spmd_mesh: shares cut at the walk's exit groups, so
+        every ray keeps its unsharded candidate list."""
+        from texir_code_tpu_torch.models.tbl import stream_group_rays
+
+        s = self.sample_light[1]
+        group, row = stream_group_rays(b * s, self.spec_row_width,
+                                       self.spec_fan_block,
+                                       self.spec_exit_rows)
+        return self.spmd_mesh.shares(b, math.lcm(group, s) // s), row
 
     # -- the forward pass --------------------------------------------------
 
@@ -262,15 +311,16 @@ class MaterialModel:
                 fan_block=self.gbuf_fan_block, exit_rows=self.gbuf_exit_rows,
                 row_width=self.gbuf_row_width, proxy=self.proxy_scene,
                 occluders=self.occluders, fan_scene=self.fan_scene,
+                rank_mesh=self.spmd_mesh,
             )
             uv_img = g.uv
             f, h, w, _ = g.normal.shape
             b = f * h * w
             lod = {
-                name: compute_lod(uv_img, t.shape[0], t.shape[1]).reshape(b)
-                for name, t in (("lod_a", params.albedo),
-                                ("lod_r", params.roughness),
-                                ("lod_i", self.irt))
+                name: compute_lod(uv_img, *hw).reshape(b)
+                for name, hw in (("lod_a", self.atlas_shape(params.albedo)),
+                                 ("lod_r", self.atlas_shape(params.roughness)),
+                                 ("lod_i", self.irt.shape[:2]))
             }
         return dict(uv=uv_img.reshape(b, 2), normal=g.normal,
                     position=g.position, mask=g.mask, **lod)
@@ -298,12 +348,29 @@ class MaterialModel:
         position = view["position"]
         f, h, w, _ = normal.shape
         b = f * h * w
+        if self.spmd_mesh is not None:
+            return self._forward_spmd(params, view, cam, stage, seed,
+                                      spec_shift)
         if spec_shift is None:
             spec_shift = self.draw_spec_shift(seed, b)
         spec_shift = torch.as_tensor(spec_shift, dtype=torch.float32,
                                      device=self.device)
         args = (view["uv"], view["lod_a"], view["lod_r"], view["lod_i"],
                 normal.reshape(b, 3), position.reshape(b, 3), spec_shift)
+        if self.atlas_mesh is not None:
+            from texir_code_tpu_torch.parallel.atlas_tp import (
+                tp_sample_materials,
+            )
+
+            uv, lod_a, lod_r, lod_i = args[:4]
+            alb, rgh, womip = tp_sample_materials(
+                self.atlas_mesh, params.albedo, params.roughness, uv, lod_a,
+                lod_r, self.max_mip_level)
+            irr = texture_sample(self.irt_pyramid, uv, lod_i)
+            rgb, albedo, roughness, roughness_womip = self._stage_shade(
+                alb, rgh, womip, irr, *args[4:], cam, stage)
+            return self._outputs(stage, view, rgb, albedo, roughness,
+                                 roughness_womip)
         alb_pyr = build_mip_pyramid(params.albedo, self.max_mip_level)
         rgh_pyr = build_mip_pyramid(params.roughness, self.max_mip_level)
 
@@ -318,6 +385,43 @@ class MaterialModel:
                 shade, args, int(self.shade_chunk))
         else:
             rgb, albedo, roughness, roughness_womip = shade(args)
+        return self._outputs(stage, view, rgb, albedo, roughness,
+                             roughness_womip)
+
+    def _forward_spmd(self, params, view, cam, stage, seed, spec_shift):
+        """_forward under spmd_mesh: this rank shades its share of the
+        pixels, with draws keyed by their global ids, and the outputs are
+        gathered (shade_chunk does not apply, as in the JAX package)."""
+        from texir_code_tpu_torch.parallel.mesh import all_gather_rows
+
+        b = view["uv"].shape[0]
+        shares, row = self.pixel_shares(b)
+        mine = shares[self.spmd_mesh.rank]
+        if spec_shift is None:
+            spec_shift = self.draw_spec_shift(
+                seed, b, ids=torch.arange(mine.start, mine.stop,
+                                          device=self.device))
+        else:
+            spec_shift = torch.as_tensor(spec_shift, dtype=torch.float32,
+                                         device=self.device)[mine]
+        args = tuple(a[mine] for a in (
+            view["uv"], view["lod_a"], view["lod_r"], view["lod_i"],
+            view["normal"].reshape(b, 3), view["position"].reshape(b, 3)))
+        alb_pyr = build_mip_pyramid(params.albedo, self.max_mip_level)
+        rgh_pyr = build_mip_pyramid(params.roughness, self.max_mip_level)
+        outs = self._shade_flat(alb_pyr, rgh_pyr, params.roughness, *args,
+                                spec_shift, cam, stage, row_width=row)
+        counts = [sl.stop - sl.start for sl in shares]
+        rgb, albedo, roughness, roughness_womip = (
+            all_gather_rows(o, self.spmd_mesh, counts) for o in outs)
+        return self._outputs(stage, view, rgb, albedo, roughness,
+                             roughness_womip)
+
+    @staticmethod
+    def _outputs(stage, view, rgb, albedo, roughness, roughness_womip):
+        normal = view["normal"]
+        position = view["position"]
+        f, h, w, _ = normal.shape
         if stage == 0:
             position_out = position + 1e-1 * normal
         else:
@@ -337,10 +441,11 @@ class MaterialModel:
 
     def _shade_flat(self, alb_pyr, rgh_pyr, rough_base, uv, lod_a, lod_r,
                     lod_i, normal, position, spec_shift, cam_position,
-                    stage: int):
+                    stage: int, row_width: Optional[int] = None):
         """All differentiable per-pixel work on flat tensors: the four
         texture fetches (reference :128-139) from the albedo and roughness
-        pyramids and the base roughness atlas, and the stage's shading."""
+        pyramids and the base roughness atlas, and the stage's shading.
+        row_width: the specular walk's row width (default the model's)."""
         # column 2 is the stochastic-LOD uniform, columns 3-4 the
         # bilinear-corner uniforms (present only with their knobs)
         if spec_shift.shape[-1] > 4:
@@ -353,12 +458,21 @@ class MaterialModel:
         roughness = texture_sample(rgh_pyr, uv, lod_r, rng=rng)
         roughness_womip = bilinear_sample(rough_base, uv)
         irr = texture_sample(self.irt_pyramid, uv, lod_i, rng=rng)
+        return self._stage_shade(albedo, roughness, roughness_womip, irr,
+                                 normal, position, spec_shift, cam_position,
+                                 stage, row_width)
 
+    def _stage_shade(self, albedo, roughness, roughness_womip, irr, normal,
+                     position, spec_shift, cam_position, stage: int,
+                     row_width: Optional[int] = None):
+        """The stage's shading of sampled materials (the reference forward
+        after its dr.texture calls, models/mat_nvdiffrast.py:141-190)."""
+        kw = dict(row_width=row_width)
         if stage == -1:
             rgb = self._render_flat(
                 normal, torch.zeros_like(albedo),
                 torch.full_like(roughness, 0.01), position + 1e-2 * normal,
-                cam_position, irr, spec_shift, vhl=True,
+                cam_position, irr, spec_shift, vhl=True, **kw,
             )
             albedo_out = torch.zeros_like(albedo)
         elif stage == 0:
@@ -368,12 +482,12 @@ class MaterialModel:
             albedo_out = albedo.detach()
             rgb = self._render_flat(
                 normal, albedo_out, roughness_womip, position + 1e-2 * normal,
-                cam_position, irr, spec_shift,
+                cam_position, irr, spec_shift, **kw,
             )
         elif stage == 2:
             rgb = self._render_flat(
                 normal, albedo, roughness, position + 1e-2 * normal,
-                cam_position, irr, spec_shift,
+                cam_position, irr, spec_shift, **kw,
             )
             albedo_out = albedo
         else:
@@ -381,7 +495,8 @@ class MaterialModel:
         return rgb, albedo_out, roughness, roughness_womip
 
     def _render_flat(self, normal, albedo, roughness, points, cam_position,
-                     irr, spec_shift, vhl: bool = False) -> torch.Tensor:
+                     irr, spec_shift, vhl: bool = False,
+                     row_width: Optional[int] = None) -> torch.Tensor:
         """Physically based shading on flat per-pixel tensors (reference
         models/mat_nvdiffrast.py:201-249): diffuse from the IrT, specular
         by GGX-importance MC against the TBL (or its VHL emitter).
@@ -420,7 +535,7 @@ class MaterialModel:
             tbl, spec_origins, tuple(d.detach() for d in light_dirs),
             self.cluster_scene, rgbe_pre=rgbe_pre,
             fan_block=self.spec_fan_block, exit_rows=self.spec_exit_rows,
-            row_width=self.spec_row_width,
+            row_width=row_width or self.spec_row_width,
             two_pass_cut=self.spec_two_pass_cut,
             two_pass_cap=self.spec_two_pass_cap, proxy=self.proxy_scene,
             occluders=self.occluders, fan_scene=self.fan_scene,

@@ -300,6 +300,18 @@ def _row_split(n: int, max_r: int = 2048) -> int:
     return r
 
 
+def stream_group_rays(total: int, row_width: int = 2048, fan_block: int = 8,
+                      exit_rows: int = 0) -> Tuple[int, int]:
+    """(rays of one exit group, row width) of query_tbl_auto's walk over
+    `total` rays.  A share of the rays cut at a multiple of the group and
+    traced with that row width keeps every ray's candidate list and exit
+    group (the walk's groups are rows of the row width, er rows each:
+    ops.pallas_culled.walk_args)."""
+    r = _row_split(total + (-total) % 128, row_width)
+    er = exit_rows if (exit_rows and fan_block % exit_rows == 0) else fan_block
+    return r * er, r
+
+
 def query_tbl_stream(
     tbl: TBL,
     origins,
@@ -394,6 +406,8 @@ def query_tbl_auto(tbl: TBL, origins, dirs, cluster_scene, **kw):
         return query_tbl_soa(tbl, origins, dirs, kw.get("t_valid", 1e-4))
     shape = origins[0].shape
     total = int(np.prod(shape))
+    if total == 0:  # a rank's empty share (parallel.mesh)
+        return tuple(torch.zeros_like(origins[0]) for _ in range(3))
     pad = (-total) % 128
     if not pad:
         return query_tbl_stream(tbl, origins, dirs, cluster_scene, **kw)

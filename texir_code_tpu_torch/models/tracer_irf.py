@@ -23,9 +23,9 @@ class TracerIRF(TracerIRRF):
     """View-dependent radiance tracer: {gt [B, S, 3], pred [B, S, 3]}."""
 
     def __init__(self, tbl, network: Optional[IRNetwork] = None,
-                 cluster_scene=None):
+                 cluster_scene=None, spmd_mesh=None):
         super().__init__(tbl, network or IRNetwork(dims=(512,) * 8),
-                         cluster_scene=cluster_scene)
+                         cluster_scene=cluster_scene, spmd_mesh=spmd_mesh)
 
     @torch.no_grad()
     def trace_gt(self, points: torch.Tensor, normals: torch.Tensor,
@@ -35,9 +35,14 @@ class TracerIRF(TracerIRRF):
         s = resolution[0] * resolution[1]
         if row_ids is None:
             row_ids = torch.arange(points.shape[0], device=points.device)
-        dirs = generate_dir(normals, s, mode="uniform",
-                            samples=self.draw_samples(seed, row_ids, s))
-        return dirs, self.trace_rays(points, dirs)
+
+        def rows(p, n, ids, row_width):
+            dirs = generate_dir(n, s, mode="uniform",
+                                samples=self.draw_samples(seed, ids, s))
+            return dirs, self.trace_rays(p, dirs, row_width)
+
+        return self._on_ranks(rows, points.shape[0], s, points, normals,
+                              row_ids)
 
     def forward(self, points: torch.Tensor, normals: torch.Tensor,
                 resolution: Tuple[int, int], seed: int = 0,

@@ -20,12 +20,19 @@ per-row toroidal shift of the Hammersley set and the jitter's normals come
 from the counter hash `ops.sampling.hash_uniform`, so they do not depend on
 batching.  Parity tests replace `draw_samples` / `draw_jitter` with the JAX
 package's own draws.
+
+With `spmd_mesh` (parallel.mesh.DeviceMesh) each rank traces its share of
+a batch's rows (whole exit groups of the walk, with their global row ids)
+and the rows are gathered, so every rank holds the GT that one rank would
+trace; a batch the ranks do not divide is traced whole on every rank, as
+the JAX package does.  The networks stay replicated: every rank steps on
+the same gathered GT.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -68,7 +75,7 @@ class TracerIRRF:
     JITTER_STREAM = 2
 
     def __init__(self, tbl, network: Optional[MatNetwork] = None,
-                 std_jit: float = 5e-2, cluster_scene=None):
+                 std_jit: float = 5e-2, cluster_scene=None, spmd_mesh=None):
         """Args:
             tbl: the texture-based-lighting scene (emitter mesh + atlas).
             network: the irradiance MLP (default: the reference's
@@ -76,11 +83,14 @@ class TracerIRRF:
             std_jit: the smoothness pair's jitter (train.std_jit).
             cluster_scene: ops.pallas_culled.ClusterScene of the mesh; the
                 GT trace walks it (None: the TBL's BVH).
+            spmd_mesh: optional parallel.mesh.DeviceMesh that splits the GT
+                trace's rows over its ranks.
         """
         self.tbl = tbl
         self.network = network or MatNetwork()
         self.std_jit = std_jit
         self.cluster_scene = cluster_scene
+        self.spmd_mesh = spmd_mesh
 
     def draw_samples(self, seed: int, row_ids: torch.Tensor,
                      s: int) -> torch.Tensor:
@@ -91,7 +101,8 @@ class TracerIRRF:
         """[B, 3] unit normals of the smoothness pair's jitter."""
         return hash_normal(seed, row_ids, 3, self.JITTER_STREAM)
 
-    def trace_rays(self, points: torch.Tensor, dirs: torch.Tensor):
+    def trace_rays(self, points: torch.Tensor, dirs: torch.Tensor,
+                   row_width: int = 2048):
         """Radiance [B, S, 3] along dirs [B, S, 3] from points [B, 3]."""
         from texir_code_tpu_torch.models.tbl import query_tbl_auto
 
@@ -100,7 +111,28 @@ class TracerIRRF:
                     for k in range(3))
         dd = tuple(dirs[..., k].contiguous() for k in range(3))
         return torch.stack(query_tbl_auto(self.tbl, pts, dd,
-                                          self.cluster_scene), dim=-1)
+                                          self.cluster_scene,
+                                          row_width=row_width), dim=-1)
+
+    def _on_ranks(self, fn: Callable, b: int, s: int, *rows):
+        """fn(*rows, row_width=...) over a batch of b rows of s rays each:
+        whole, or under spmd_mesh (b divisible by the ranks) on this
+        rank's share of the rows (tensors among `rows` are sliced, None
+        passes) with every rank's outputs gathered."""
+        from texir_code_tpu_torch.models.tbl import stream_group_rays
+
+        mesh = self.spmd_mesh
+        if mesh is None or b % mesh.size:
+            return fn(*rows, row_width=2048)
+        group, row = stream_group_rays(b * s)
+        shares = mesh.shares(b, math.lcm(group, s) // s)
+        mine = shares[mesh.rank]
+        out = fn(*(a if a is None else a[mine] for a in rows), row_width=row)
+        counts = [sl.stop - sl.start for sl in shares]
+        if isinstance(out, tuple):
+            return tuple(mesh.all_gather_rows(o.contiguous(), counts)
+                         for o in out)
+        return mesh.all_gather_rows(out, counts)
 
     @torch.no_grad()
     def trace_gt(self, points: torch.Tensor, normals: torch.Tensor,
@@ -117,13 +149,18 @@ class TracerIRRF:
             dirs: optional [B, S, 3] directions, replacing the draw.
         """
         s = resolution[0] * resolution[1]
-        if dirs is None:
-            if row_ids is None:
-                row_ids = torch.arange(points.shape[0], device=points.device)
-            dirs = generate_dir(normals, s, mode="uniform",
-                                samples=self.draw_samples(seed, row_ids, s))
-        return irradiance_estimator(self.trace_rays(points, dirs), dirs,
-                                    normals, s)
+        if row_ids is None:
+            row_ids = torch.arange(points.shape[0], device=points.device)
+
+        def rows(p, n, ids, d, row_width):
+            if d is None:
+                d = generate_dir(n, s, mode="uniform",
+                                 samples=self.draw_samples(seed, ids, s))
+            return irradiance_estimator(self.trace_rays(p, d, row_width), d,
+                                        n, s)
+
+        return self._on_ranks(rows, points.shape[0], s, points, normals,
+                              row_ids, dirs)
 
     def forward(self, points: torch.Tensor, normals: torch.Tensor,
                 resolution: Tuple[int, int], seed: int = 0,

@@ -433,6 +433,15 @@ class IrradianceTextureBaker:
             tuple(normals[:, k] for k in range(3)), texel_ids, seed,
             self.spp, self.surface_eps, samples=samples), dim=-1)
 
+    def _batches(self, nb: int) -> range:
+        """The batches this process traces (all of them here; a share under
+        parallel.bake.ShardedIrradianceBaker)."""
+        return range(nb)
+
+    def _merge(self, out: torch.Tensor) -> None:
+        """Complete `out`, the rows of the traced batches (zeros elsewhere),
+        in place (nothing to do in one process)."""
+
     def bake(
         self,
         geom: GeometryTextures,
@@ -459,18 +468,20 @@ class IrradianceTextureBaker:
         nrm[:n] = torch.from_numpy(geom.normal[vr, vc]).to(dev)
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
         ids = torch.arange(nb * bs, dtype=torch.int64, device=dev)
-        out = torch.empty((nb * bs, 3), dtype=torch.float32, device=dev)
+        out = torch.zeros((nb * bs, 3), dtype=torch.float32, device=dev)
         # batches whose two-pass trace took the full-trace branch
         self.overflowed_batches = []
         twopass = cast_fans_culled_twopass.counts
-        for i in range(nb):
+        mine = self._batches(nb)
+        for k, i in enumerate(mine):
             sl = slice(i * bs, (i + 1) * bs)
             before = twopass["overflows"]
             out[sl] = self.bake_batch(pts[sl], nrm[sl], ids[sl], seed)
             if twopass["overflows"] > before:
                 self.overflowed_batches.append(i)
-            if progress and (i + 1) % 16 == 0:
-                print(f"bake: {i + 1}/{nb} batches")
+            if progress and (k + 1) % 16 == 0:
+                print(f"bake: {k + 1}/{len(mine)} batches")
+        self._merge(out)
         tex = np.zeros((res, res, 3), np.float32)
         tex[vr, vc] = out[:n].cpu().numpy()
         return tex

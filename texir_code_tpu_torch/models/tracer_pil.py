@@ -40,9 +40,9 @@ class TracerPIL(TracerIRRF):
     # counter-hash streams of a row: 0 roughness, 1-2 the half-vector
     # shift, 3-4 wo
     def __init__(self, tbl, network: Optional[PILNetwork] = None,
-                 cluster_scene=None):
+                 cluster_scene=None, spmd_mesh=None):
         super().__init__(tbl, network or PILNetwork(dims=(128,) * 4),
-                         cluster_scene=cluster_scene)
+                         cluster_scene=cluster_scene, spmd_mesh=spmd_mesh)
 
     def draw(self, seed: int, row_ids: torch.Tensor, s: int):
         """(roughness [B, 1], half-vector samples [B, S, 2], wo samples
@@ -65,18 +65,23 @@ class TracerPIL(TracerIRRF):
         grid); None draws one uniform per point (reference :87)."""
         if row_ids is None:
             row_ids = torch.arange(points.shape[0], device=points.device)
-        r_draw, half_s, wo_s = self.draw(seed, row_ids, num_samples)
-        if roughness is None:
-            roughness = r_draw
-        half = generate_dir(normals, num_samples, mode="importance",
-                            roughness=roughness, samples=half_s)
-        wo = generate_dir(normals, 1, mode="uniform", samples=wo_s)[:, 0, :]
-        light_dirs, _ = reflect(wo, half)
-        lighting = self.trace_rays(points, light_dirs)
-        ndl = (normals[:, None, :] * light_dirs).sum(
-            dim=-1, keepdim=True).clamp(0.0, 1.0)
-        gt = (lighting * ndl).sum(dim=1) * (2 * np.pi / num_samples)
-        return roughness, wo, gt
+
+        def rows(p, n, ids, rough, row_width):
+            r_draw, half_s, wo_s = self.draw(seed, ids, num_samples)
+            if rough is None:
+                rough = r_draw
+            half = generate_dir(n, num_samples, mode="importance",
+                                roughness=rough, samples=half_s)
+            wo = generate_dir(n, 1, mode="uniform", samples=wo_s)[:, 0, :]
+            light_dirs, _ = reflect(wo, half)
+            lighting = self.trace_rays(p, light_dirs, row_width)
+            ndl = (n[:, None, :] * light_dirs).sum(
+                dim=-1, keepdim=True).clamp(0.0, 1.0)
+            gt = (lighting * ndl).sum(dim=1) * (2 * np.pi / num_samples)
+            return rough, wo, gt
+
+        return self._on_ranks(rows, points.shape[0], num_samples, points,
+                              normals, row_ids, roughness)
 
     def forward(self, points: torch.Tensor, normals: torch.Tensor,
                 resolution: Tuple[int, int], seed: int = 0,

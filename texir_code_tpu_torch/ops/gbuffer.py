@@ -136,6 +136,7 @@ def render_gbuffer(
     proxy=None,
     occluders=None,
     fan_scene=None,
+    rank_mesh=None,
 ) -> GBuffer:
     """Render cube-face G-buffers by primary-ray casting through the culled
     walk (the JAX package's `cluster_scene` path) or, with no cluster
@@ -157,6 +158,10 @@ def render_gbuffer(
             cluster_scene is None: every pixel ray is tested against every
             leaf row, in rows of 2048 pixels (the knobs above are the
             culled walk's).
+        rank_mesh: optional parallel.mesh.DeviceMesh: each rank traces its share
+            of the exit groups (whole groups, so every ray keeps its
+            candidate list) and the hits are gathered, so the G-buffer
+            equals the unsharded one bit for bit on every rank.
     """
     from texir_code_tpu_torch.ops.pallas_culled import cast_fans_culled
     from texir_code_tpu_torch.ops.pallas_fan import cast_ray_fans_pallas
@@ -172,11 +177,23 @@ def render_gbuffer(
     while n % r_split:
         r_split -= 128
     rows = n // r_split
+    if rank_mesh is not None:
+        er = (exit_rows if (exit_rows and fan_block % exit_rows == 0)
+              else fan_block) if cluster_scene is not None else 1
+        shares = rank_mesh.shares(rows, er)
+        mine = shares[rank_mesh.rank]
+        flat = flat.reshape(rows, r_split, 3)[mine].reshape(-1, 3)
+        rows = mine.stop - mine.start
     origins = tuple(cam_position[k].expand(rows).contiguous()
                     for k in range(3))
     dirs = tuple(flat[:, k].reshape(rows, r_split).contiguous()
                  for k in range(3))
-    if cluster_scene is not None:
+    if rows == 0:
+        hit = RayHit(t=flat.new_empty((0,)),
+                     prim=torch.empty((0,), dtype=torch.int32,
+                                      device=flat.device),
+                     u=flat.new_empty((0,)), v=flat.new_empty((0,)))
+    elif cluster_scene is not None:
         hit = cast_fans_culled(
             cluster_scene, origins, dirs, t_min=1e-6, fan_block=fan_block,
             exit_rows=exit_rows, emit_prim=True, proxy=proxy,
@@ -186,6 +203,10 @@ def render_gbuffer(
         hit = cast_ray_fans_pallas(fan_scene, origins, dirs, t_min=1e-6)
     hit = RayHit(t=hit.t.reshape(-1), prim=hit.prim.reshape(-1),
                  u=hit.u.reshape(-1), v=hit.v.reshape(-1))
+    if rank_mesh is not None:
+        counts = [(s.stop - s.start) * r_split for s in shares]
+        hit = RayHit(*(rank_mesh.all_gather_rows(a, counts) for a in
+                       (hit.t, hit.prim, hit.u, hit.v)))
 
     valid = hit.prim >= 0
     position, normal, uv = interpolate_attributes(mesh, hit)

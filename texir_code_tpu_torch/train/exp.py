@@ -10,6 +10,12 @@ Reproduces the reference's exp management (trainer/train_material.py:62-94):
 
 plus `--is_continue [--timestamp]` resume discovery (exp_runner.py:37-42) and
 the global seed (666, train_material.py:87-89).
+
+A run of several ranks (parallel/) makes one experiment directory: rank 0
+picks the timestamp and broadcasts it, and only rank 0 (`is_writer()`)
+makes the directories and writes images, atlases, scalars.tsv,
+timings.json and checkpoints.  (The JAX package's processes write on
+separate hosts.)
 """
 
 from __future__ import annotations
@@ -22,6 +28,22 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+
+def is_writer() -> bool:
+    """True on the rank that writes the run's files: rank 0, or the only
+    process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _agreed(value):
+    """Rank 0's `value` on every rank (the value itself in one process)."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return value
+    from texir_code_tpu_torch.parallel.mesh import make_device_mesh
+
+    return make_device_mesh().broadcast_object(value)
 
 
 class ExperimentDir:
@@ -35,45 +57,55 @@ class ExperimentDir:
         conf_path: Optional[str] = None,
     ):
         self.base = os.path.join(exps_root, f"{stage}-{expname}")
+        self.is_writer = is_writer()
         if is_continue:
-            if timestamp in (None, "latest"):
+            if timestamp in (None, "latest") and self.is_writer:
                 stamps = sorted(os.listdir(self.base)) if os.path.isdir(self.base) else []
-                if not stamps:
-                    raise FileNotFoundError(f"nothing to continue in {self.base}")
-                timestamp = stamps[-1]
+                timestamp = stamps[-1] if stamps else None
+            timestamp = _agreed(timestamp)
+            if timestamp is None:
+                raise FileNotFoundError(f"nothing to continue in {self.base}")
             self.timestamp = timestamp
             self.continued = True
         else:
-            self.timestamp = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
+            self.timestamp = _agreed(
+                datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S"))
             self.continued = False
 
         self.root = os.path.join(self.base, self.timestamp)
         self.plots_dir = os.path.join(self.root, "plots")
         self.checkpoints_dir = os.path.join(self.root, "checkpoints", "ModelParameters")
-        os.makedirs(self.plots_dir, exist_ok=True)
-        os.makedirs(self.checkpoints_dir, exist_ok=True)
-        if conf_path and os.path.exists(conf_path):
-            shutil.copy(conf_path, os.path.join(self.root, "runconf.conf"))
+        if self.is_writer:
+            os.makedirs(self.plots_dir, exist_ok=True)
+            os.makedirs(self.checkpoints_dir, exist_ok=True)
+            if conf_path and os.path.exists(conf_path):
+                shutil.copy(conf_path, os.path.join(self.root, "runconf.conf"))
 
     def writer(self) -> "ScalarWriter":
         """Scalar log of the run (the reference's tensorboardX writer,
         :81-82): one `tag<TAB>step<TAB>value` line per scalar in
-        <root>/scalars.tsv.  Close it when the run ends."""
+        <root>/scalars.tsv (on the writing rank; the others discard
+        theirs).  Close it when the run ends."""
+        if not self.is_writer:
+            return ScalarWriter(None)
         return ScalarWriter(os.path.join(self.root, "scalars.tsv"))
 
 
 class ScalarWriter:
-    """Appends scalars to a tab-separated text file."""
+    """Appends scalars to a tab-separated text file (path None: discards
+    them)."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: Optional[str]):
         self.path = path
-        self._f = open(path, "a")
+        self._f = open(path, "a") if path is not None else None
 
     def add_scalar(self, tag: str, value: float, step: int) -> None:
-        self._f.write(f"{tag}\t{int(step)}\t{float(value)!r}\n")
+        if self._f is not None:
+            self._f.write(f"{tag}\t{int(step)}\t{float(value)!r}\n")
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 SEED = 666  # the reference's global seed

@@ -246,11 +246,13 @@ class BaselineHeadRunner:
               flush=True)
 
     def _finish(self, t0: float, **extra):
-        ckpt.save_checkpoint(self.exp.checkpoints_dir, self.nepochs,
-                             {"params": self.params.state_dict()})
+        if self.exp.is_writer:
+            ckpt.save_checkpoint(self.exp.checkpoints_dir, self.nepochs,
+                                 {"params": self.params.state_dict()})
         self.timings["run_s"] = time.time() - t0
-        with open(os.path.join(self.exp.root, "timings.json"), "w") as f:
-            json.dump(dict(self.timings, **extra), f, indent=1)
+        if self.exp.is_writer:
+            with open(os.path.join(self.exp.root, "timings.json"), "w") as f:
+                json.dump(dict(self.timings, **extra), f, indent=1)
         self.writer.close()
 
     def run(self):

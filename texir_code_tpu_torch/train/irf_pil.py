@@ -6,7 +6,9 @@ trainer/train_pil.py, the pre-integrated lighting field): the IRRF
 runner's loop (`train.irrf.FieldRunner`: per-epoch point resampling, MC
 ground truth against the TBL, Adam with the staircase decay over the MLP)
 for `_PointFieldRunner.nepochs` epochs, then a checkpoint and the
-stage's validation metric.
+stage's validation metric.  Both honour train.spmd, as the JAX runners do
+(texir_code_tpu/train/irf_pil.py:64, :73): the GT traces split over the
+ranks (train.irrf.FieldRunner).
 """
 
 from __future__ import annotations
@@ -60,7 +62,8 @@ class IRFTrainRunner(_PointFieldRunner):
                                               default=[512] * 8)),
                 generator=self.generator,
             )
-        return TracerIRF(tbl, net, cluster_scene=self.cluster_scene)
+        return TracerIRF(tbl, net, cluster_scene=self.cluster_scene,
+                         spmd_mesh=self.spmd_mesh)
 
     @torch.no_grad()
     def validate(self, epoch: int):
@@ -91,8 +94,9 @@ class IRFTrainRunner(_PointFieldRunner):
             preds.append(hdr_recover(out["pred"]).mean(dim=1))
         pred = torch.cat(preds).cpu().numpy().reshape(h, w, 3)
         gt = torch.cat(gts).cpu().numpy().reshape(h, w, 3)
-        hdrio.plot_irf(os.path.join(self.exp.plots_dir, f"irf_{epoch}.hdr"),
-                       pred, gt)
+        if self.exp.is_writer:
+            hdrio.plot_irf(os.path.join(self.exp.plots_dir,
+                                        f"irf_{epoch}.hdr"), pred, gt)
         self.val_metrics = pano_metrics(pred, gt, self.device)
         self.timings["val_s"] = time.time() - t0
         self._log_val(epoch)
@@ -110,7 +114,8 @@ class PILTrainRunner(_PointFieldRunner):
         from texir_code_tpu_torch.models.tracer_pil import TracerPIL
 
         return TracerPIL(tbl, PILNetwork(generator=self.generator),
-                         cluster_scene=self.cluster_scene)
+                         cluster_scene=self.cluster_scene,
+                         spmd_mesh=self.spmd_mesh)
 
     @torch.no_grad()
     def validate(self, epoch: int, roughness_grid=(0.1, 0.3, 0.5, 0.7, 0.9),

@@ -20,6 +20,11 @@ ckpt_freq, irf_loss.loss_type.
 
 `timings.json` in the experiment directory records the stage's seconds
 (set-up, training, validation and its GT trace) and the last val metrics.
+
+With more than one rank (train.spmd "auto", the default) or train.spmd =
+true, the GT traces are split over the ranks (the tracers' `spmd_mesh`)
+and every rank steps its replicated network on the gathered GT; rank 0
+writes the files.
 """
 
 from __future__ import annotations
@@ -85,14 +90,13 @@ class FieldRunner:
         from texir_code_tpu_torch.models.tbl import build_tbl_from_flat
         from texir_code_tpu_torch.ops.fan_raycast import FanScene
         from texir_code_tpu_torch.ops.pallas_culled import ClusterScene
+        from texir_code_tpu_torch.parallel.mesh import (
+            parallel_meshes_from_conf,
+        )
 
         t0 = time.time()
         self.device = resolve_device(device)
-        if conf.get("train.spmd") is True:
-            raise NotImplementedError(
-                "train.spmd=true: the sharded field trace is not ported yet "
-                "(ROADMAP.md queue A item 16)"
-            )
+        self.spmd_mesh, _ = parallel_meshes_from_conf(conf, self.device)
         self.conf = conf
         self.expname = expname
         self.exp = ExperimentDir(
@@ -204,6 +208,8 @@ class FieldRunner:
         return torch.stack(losses).cpu().numpy()
 
     def _checkpoint(self, epoch: int) -> None:
+        if not self.exp.is_writer:
+            return
         ckpt.save_checkpoint(self.exp.checkpoints_dir, epoch, {
             "network": self.model.network.state_dict(),
             "optimizer": self.optimizer.state_dict(),
@@ -241,9 +247,10 @@ class FieldRunner:
             steps_per_s=steps / train_s if train_s else 0.0,
             run_s=time.time() - t_run,
         )
-        with open(os.path.join(self.exp.root, "timings.json"), "w") as f:
-            json.dump(dict(self.timings, val_metrics=self.val_metrics), f,
-                      indent=1)
+        if self.exp.is_writer:
+            with open(os.path.join(self.exp.root, "timings.json"), "w") as f:
+                json.dump(dict(self.timings, val_metrics=self.val_metrics),
+                          f, indent=1)
         self.writer.close()
         return self.model.network
 
@@ -279,7 +286,7 @@ class IRRFTrainRunner(FieldRunner):
         return TracerIRRF(
             tbl, network,
             std_jit=self.conf.get_float("train.std_jit", default=5e-2),
-            cluster_scene=self.cluster_scene,
+            cluster_scene=self.cluster_scene, spmd_mesh=self.spmd_mesh,
         )
 
     def _epochs(self):
@@ -333,8 +340,9 @@ class IRRFTrainRunner(FieldRunner):
         h, w = self.val_res
         pred = self.model.predict_irradiance(
             self._tensor(self._val.points)).cpu().numpy().reshape(h, w, 3)
-        hdrio.plot_irf(os.path.join(self.exp.plots_dir, f"irrf_{epoch}.hdr"),
-                       pred, gt)
+        if self.exp.is_writer:
+            hdrio.plot_irf(os.path.join(self.exp.plots_dir,
+                                        f"irrf_{epoch}.hdr"), pred, gt)
         self.val_metrics = pano_metrics(pred, gt, self.device)
         self.timings["val_s"] = time.time() - t0
         self._log_val(epoch)

@@ -7,7 +7,10 @@ bake → seam padding (distance transform) → denoise (à-trous) → write both
 (the padded/denoised texture the Mat stage loads,
 models/mat_nvdiffrast.py:73).
 
-The port of the JAX package's `train/irt.py`, on one device.
+The port of the JAX package's `train/irt.py`.  With more than one rank
+(train.spmd "auto", the default) or train.spmd = true the texel batches
+are split over the ranks (parallel.bake.ShardedIrradianceBaker) and every
+rank ends with the whole texture; rank 0 writes it.
 """
 
 from __future__ import annotations
@@ -21,7 +24,11 @@ import torch
 from texir_code_tpu_torch.config import Config
 from texir_code_tpu_torch.data import hdrio
 from texir_code_tpu_torch.device import resolve_device
-from texir_code_tpu_torch.train.exp import ExperimentDir, seed_everything
+from texir_code_tpu_torch.train.exp import (
+    ExperimentDir,
+    is_writer,
+    seed_everything,
+)
 
 
 class IrrTextureRunner:
@@ -48,13 +55,12 @@ class IrrTextureRunner:
         from texir_code_tpu_torch.ops.fan_raycast import FanScene
         from texir_code_tpu_torch.ops.pallas_culled import ClusterScene
 
+        from texir_code_tpu_torch.parallel.mesh import (
+            make_device_mesh,
+            world_size,
+        )
+
         self.device = resolve_device(device)
-        spmd = conf.get("train.spmd", "auto")
-        if spmd is True:
-            raise NotImplementedError(
-                "train.spmd=true: the sharded bake is not ported yet "
-                "(ROADMAP.md queue A item 16)"
-            )
         self.conf = conf
         self.exp = ExperimentDir(
             exps_root, "IrrT", expname, is_continue, timestamp, conf_path
@@ -95,10 +101,21 @@ class IrrTextureRunner:
         clusters = ClusterScene.from_fan(
             fan, lb=lb, dense=True, device=self.device
         )
-        self.baker = IrradianceTextureBaker(
-            self.tbl, spp=int(spp), texel_batch=texel_batch,
-            cluster_scene=clusters, wedges=wedges,
-        )
+        baker_kw = dict(spp=int(spp), texel_batch=texel_batch,
+                        cluster_scene=clusters, wedges=wedges)
+        # the JAX runner's rule (texir_code_tpu/train/irt.py:99-103), with
+        # ranks in place of devices
+        spmd = conf.get("train.spmd", "auto")
+        if spmd is True or (spmd == "auto" and world_size() > 1):
+            from texir_code_tpu_torch.parallel.bake import (
+                ShardedIrradianceBaker,
+            )
+
+            self.baker = ShardedIrradianceBaker(
+                self.tbl, mesh=make_device_mesh(device=self.device),
+                **baker_kw)
+        else:
+            self.baker = IrradianceTextureBaker(self.tbl, **baker_kw)
         if kd > 0:
             self.baker.batches_per_dispatch = kd
         self.baker.fan_block = fan_block
@@ -152,14 +169,14 @@ class IrrTextureRunner:
                   f"{-(-texels // self.baker.texel_batch)}")
         # raw bake next to the mesh, as the reference writes it (:78-82)
         raw_path = self.path_mesh.replace("out1.obj", "0_irr_texture.hdr")
-        hdrio.write_hdr(raw_path, tex, flip=True)
-
         padded = pad_texture(tex, self._geom.valid)
         if self.denoise:
             padded = atrous_denoise(
                 torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)
             ).cpu().numpy()
         out_path = self.path_mesh.replace("out1.obj", "irt.hdr")
-        hdrio.write_hdr(out_path, padded, flip=True)
-        print(f"IrT written: {raw_path} and {out_path}")
+        if is_writer():
+            hdrio.write_hdr(raw_path, tex, flip=True)
+            hdrio.write_hdr(out_path, padded, flip=True)
+            print(f"IrT written: {raw_path} and {out_path}")
         return padded

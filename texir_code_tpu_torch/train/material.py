@@ -22,6 +22,20 @@ epoch (`_stack_epoch_data`).
 `timings.json` in the experiment directory records where the stage's
 wall time went: set-up (scene, model), dataset reads, mask pass, each
 substage's steps, the material save and the re-render.
+
+Multi-device (`parallel.mesh.parallel_meshes_from_conf`: train.spmd,
+train.atlas_tp), as the JAX runner (its :33, :130-150):
+  * data parallel: every rank steps through the same views in the same
+    order (checked once a substage), renders its share of the pixels,
+    computes the full loss on the gathered outputs (so the seg prior's
+    per-room class means stay global), back-propagates its own pixels'
+    share of the cotangent and all-reduces (SUM) the atlas gradients;
+    Adam and the clamp then keep the atlases replicated, bit-equal on
+    every rank;
+  * atlas tensor parallel: each rank holds and updates only its rows of
+    albedo, roughness and both Adam moments; the saved atlases and the
+    checkpoints are gathered, and a restore gives each rank its rows.
+Only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ from __future__ import annotations
 import json
 import os
 import time
+import zlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -96,18 +111,15 @@ class MatTrainRunner:
         from texir_code_tpu_torch.geometry import load_obj
         from texir_code_tpu_torch.models.material import (
             MaterialModel,
-            MaterialParams,
             init_material_params,
             render_knobs_from_conf,
+        )
+        from texir_code_tpu_torch.parallel.mesh import (
+            parallel_meshes_from_conf,
         )
 
         t0 = time.time()
         self.device = resolve_device(device)
-        if conf.get("train.atlas_tp", False) or conf.get("train.spmd") is True:
-            raise NotImplementedError(
-                "train.spmd / train.atlas_tp: the multi-device Mat step is "
-                "not ported yet (ROADMAP.md queue A item 16)"
-            )
         self.conf = conf
         self.expname = expname
         self.exp = ExperimentDir(
@@ -137,15 +149,17 @@ class MatTrainRunner:
             path_mesh.replace("out1.obj", "hdr_texture.hdr"), flip=True)
         irt = hdrio.read_hdr(path_mesh.replace("out1.obj", "irt.hdr"),
                              flip=True)
+        spmd_mesh, atlas_mesh = parallel_meshes_from_conf(conf, self.device)
         self.model = MaterialModel(
             mesh, hdr_tex, irt, pano_res=self.pano_res,
             sample_light=tuple(conf.get_list("train.sample_light",
                                              default=[32, 16])),
             sample_type=tuple(conf.get_list("models.render.sample_type",
                                             default=["uniform", "importance"])),
-            hdr_exposure=hdr_exposure, render_knobs=knobs, device=self.device,
+            hdr_exposure=hdr_exposure, spmd_mesh=spmd_mesh,
+            atlas_mesh=atlas_mesh, render_knobs=knobs, device=self.device,
         )
-        self.params = init_material_params(
+        full = init_material_params(
             conf.get_int("train.mat_albedo_res", default=2048),
             conf.get_int("train.mat_roughness_res", default=4096),
             device=self.device,
@@ -153,13 +167,12 @@ class MatTrainRunner:
         if self.exp.continued:
             restored = ckpt.restore_checkpoint(
                 self.exp.checkpoints_dir,
-                {"albedo": self.params.albedo, "roughness": self.params.roughness},
+                {"albedo": full.albedo, "roughness": full.roughness},
             )
             if restored is not None:
-                self.params = MaterialParams(
-                    albedo=restored["albedo"].to(self.device),
-                    roughness=restored["roughness"].to(self.device),
-                )
+                full.albedo = restored["albedo"].to(self.device)
+                full.roughness = restored["roughness"].to(self.device)
+        self.params = self._local_params(full)
 
         # per-view G-buffer/LOD cache budget: ~12 fp32 per pixel, so
         # n_views · 6 · cube_res² · 48 B (~5 MB a view at pano 256×512)
@@ -183,6 +196,32 @@ class MatTrainRunner:
         self.timings["setup_s"] = time.time() - t0
 
     # ------------------------------------------------------------------
+    def _local_params(self, full):
+        """This rank's atlases: under atlas tensor parallelism its rows of
+        each whole atlas, else the whole atlases."""
+        from texir_code_tpu_torch.models.material import MaterialParams
+
+        mesh = self.model.atlas_mesh
+        if mesh is None:
+            return full
+        from texir_code_tpu_torch.parallel.atlas_tp import shard_atlas
+
+        return MaterialParams(albedo=shard_atlas(mesh, full.albedo),
+                              roughness=shard_atlas(mesh, full.roughness))
+
+    def atlases(self):
+        """The whole (albedo, roughness) atlases as numpy arrays, gathered
+        from every rank's rows under atlas tensor parallelism."""
+        from texir_code_tpu_torch.parallel.atlas_tp import gather_atlas
+
+        mesh = getattr(self.model, "atlas_mesh", None)
+        out = []
+        for p in (self.params.albedo, self.params.roughness):
+            if mesh is not None:
+                p = gather_atlas(mesh, p)
+            out.append(p.detach().cpu().numpy())
+        return tuple(out)
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -301,11 +340,12 @@ class MatTrainRunner:
             views.append(v)
         return views, n_rooms
 
-    def _step(self, stage, v, n_rooms, it, optimizer, scheduler):
+    def _loss_backward(self, stage, v, n_rooms, it):
+        """Render view v with step `it`'s draws, the stage's loss and its
+        backward into the atlases' .grad (summed over the ranks under data
+        parallelism): (total loss, seg term)."""
         from texir_code_tpu_torch.models.losses import render_loss
-        from texir_code_tpu_torch.models.material import clamp_material_params
 
-        optimizer.zero_grad(set_to_none=True)
         out = self.model._forward(self.params, v["mvp"], v["pos"], stage,
                                   seed=self.step_seed(it), view=v["view"])
         total, seg_term = render_loss(
@@ -315,6 +355,25 @@ class MatTrainRunner:
             seg_weight_scale=self.seg_weight_scale,
         )
         total.backward()
+        if self.model.spmd_mesh is not None:
+            # each rank back-propagated its own pixels' share of the loss
+            self.model.spmd_mesh.all_reduce_grads(
+                [self.params.albedo, self.params.roughness])
+        return total, seg_term
+
+    def check_view_order(self, views):
+        """Raise unless every rank holds the same views in the same order
+        (one rank: nothing to check)."""
+        mesh = self.model.spmd_mesh or self.model.atlas_mesh
+        if mesh is not None:
+            mesh.check_replicated("the substage's view order", zlib.crc32(
+                "\n".join(str(v["id"]) for v in views).encode()))
+
+    def _step(self, stage, v, n_rooms, it, optimizer, scheduler):
+        from texir_code_tpu_torch.models.material import clamp_material_params
+
+        optimizer.zero_grad(set_to_none=True)
+        total, seg_term = self._loss_backward(stage, v, n_rooms, it)
         optimizer.step()
         scheduler.step()
         with torch.no_grad():
@@ -329,6 +388,7 @@ class MatTrainRunner:
         t0 = time.time()
         indices = self._train_indices()
         views, n_rooms = self._stack_epoch_data(indices)
+        self.check_view_order(views)
         self._sync()
         t1 = time.time()
         for p in (self.params.albedo, self.params.roughness):
@@ -393,6 +453,8 @@ class MatTrainRunner:
         for i in range(len(self.dataset)):
             item = self._item(i)
             out = self._render(item, stage, 30_000 + i)
+            if not self.exp.is_writer:
+                continue  # every rank renders (the render is collective)
             pred = warp.to_pano(out["rgb"]).cpu().numpy()
             gt = warp.to_pano(torch.as_tensor(item["color"],
                                               device=self.device)).cpu().numpy()
@@ -401,9 +463,10 @@ class MatTrainRunner:
 
     def save_materials(self, tag: str = "final"):
         """Write the optimized atlases to plots/ (what the testers read),
-        their gutter-padded copies, and a checkpoint."""
-        albedo = self.params.albedo.detach().cpu().numpy()
-        rough = self.params.roughness.detach().cpu().numpy()
+        their gutter-padded copies, and a checkpoint (rank 0)."""
+        albedo, rough = self.atlases()
+        if not self.exp.is_writer:
+            return
         hdrio.write_hdr(os.path.join(self.exp.plots_dir,
                                      f"mat_albedo_{tag}.hdr"), albedo)
         hdrio.write_hdr(os.path.join(self.exp.plots_dir,
@@ -460,7 +523,9 @@ class MatTrainRunner:
         self.metrics = self.render_calculate(2)
         self.timings["render_calculate_s"] = time.time() - t2
         self.timings["run_s"] = time.time() - t0
-        with open(os.path.join(self.exp.root, "timings.json"), "w") as f:
-            json.dump(dict(self.timings, metrics=self.metrics), f, indent=1)
+        if self.exp.is_writer:
+            with open(os.path.join(self.exp.root, "timings.json"), "w") as f:
+                json.dump(dict(self.timings, metrics=self.metrics), f,
+                          indent=1)
         self.writer.close()
         return self.params

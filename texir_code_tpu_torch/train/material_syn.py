@@ -95,10 +95,9 @@ class MatTrainSynRunner(MatTrainRunner):
         if getattr(ds, "gt_albedo", None) is None:
             raise ValueError("dataset has no GT materials")
         gt_a, gt_r = ds.gt_albedo, ds.gt_roughness
-        albedo = _resample(self.params.albedo.detach().cpu().numpy(),
-                           gt_a.shape[:2])
-        rough = _resample(self.params.roughness.detach().cpu().numpy(),
-                          gt_r.shape[:2])
+        albedo, rough = self.atlases()
+        albedo = _resample(albedo, gt_a.shape[:2])
+        rough = _resample(rough, gt_r.shape[:2])
 
         # emitter texels take GT (postprocessing, :374-392)
         hdr_tex = hdrio.read_hdr(
@@ -192,6 +191,8 @@ class MatTrainSynRunner(MatTrainRunner):
         self.novel_metrics = self.evaluate_novel_views()
         self.timings["evaluate_materials_s"] = t1 - t0
         self.timings["evaluate_novel_views_s"] = time.time() - t1
+        if not self.exp.is_writer:
+            return params
         with open(os.path.join(self.exp.root, "timings.json"), "w") as f:
             json.dump(dict(self.timings, metrics=self.metrics,
                            material_metrics=self.material_metrics,
