@@ -78,9 +78,8 @@ Phases (any failure exits non-zero; nothing is caught):
  18. building-export: the building with one camera per room (9 views);
  19. building-proxy: its IrrT at --irt_res 256 without and with
      train.bake_proxy_k=1024: the raw bakes must be equal;
- 20. building-slice: its IrrT at --irt_res 512 (2048 spp; bench.py's big
-     scene bakes 1024^2) with fb 16, er 8, train.two_pass_cut=0.25 and
-     occluders;
+ 20. building-slice: its IrrT at --irt_res 1024 (2048 spp) with fb 16,
+     er 8, train.two_pass_cut=0.25 and occluders (bench.py's big scene);
  21. building-mat: its Mat stage with the apartment's settings plus
      models.render.proxy_k=512 and spec_two_pass_cut=0.25;
  22. building-profile: one two-pass bake batch and one cached-view
@@ -92,7 +91,7 @@ Phases (any failure exits non-zero; nothing is caught):
  25. error-reference: one view's stage-2 eval render (shade_chunk 4096)
      on the card against the CPU at pano 64×128, spp 16;
  26. relit-reference: one view's relit render on the card against the CPU
-     at pano 64×128, sample_light [32, 16];
+     at pano 32×64, sample_light [32, 16];
  27. building-reference: the card's two-pass + proxy bake_batch against
      the CPU's on 64 building texels;
  28. bvh (after 7): the BVH traversal (ops/raycast.py::cast_rays_soa,
@@ -147,7 +146,7 @@ Phases (any failure exits non-zero; nothing is caught):
      torch.profiler; B1 on a step's captured G-buffer and specular rays
      against the plain walk;
  40. heads-reference: one step of each head (full-width networks, pano
-     64x128) on the card against the CPU from the same parameters and
+     32x64) on the card against the CPU from the same parameters and
      draws: rgb rel L2 1e-4, loss rel 1e-4, gradients rel L2 1e-3;
  41. alt-models (after 40): the two alternative material models at the JAX
      defaults on the apartment — MaterialMLP (MatNetwork 4x512, pano
@@ -244,9 +243,6 @@ BUILDING_FB, BUILDING_ER = 16, 8
 TWO_PASS_CUT, TWO_PASS_CAP = 0.25, 0.125
 BAKE_PROXY_K, MAT_PROXY_K = 1024, 512
 PROXY_IRT_RES = 256  # the proxy-on/off bakes
-# the building's bake through the CLI: bench.py's 1024^2 cut to 512^2 (a
-# quarter of the texels) to keep the whole script inside its time limit
-BUILDING_IRT_RES = 512
 BUILDING_CAM = (12.0, 1.5, 7.2)
 KERNEL_SOURCE = "texir_code_tpu_torch/csrc/culled_walk.cu"
 KERNEL_REPLACES = "texir_code_tpu/ops/pallas_culled.py:367"
@@ -264,6 +260,10 @@ S1_REPLACES = "scripts/sampler_bwd_variants2.py:110"
 S2_REPLACES = "scripts/sampler_bwd_variants3.py:52"
 SEGSUM_STEPS = 8
 RELIT_REF_LIGHT = (32, 16)  # the relit card-vs-CPU check (diffuse, specular)
+# the card-vs-CPU checks of the relit render and the heads' steps: the
+# CPU's per-pixel work is most of their time, so they compare a 32x64 pano
+# (a quarter of 64x128's pixels); the paths run at full width elsewhere
+REF_PANO = (32, 64)
 # the quality run's export (scripts/quality_run.py): 5 views, GT photos
 # rendered through the material model
 QUALITY_VIEWS = 5
@@ -1871,16 +1871,15 @@ def phase_building_proxy(torch, syn, path_mesh, tmp):
 
 
 def phase_building_slice(torch, syn, path_mesh, tmp):
-    """bench.py's big-scene bake through the port's CLI at --irt_res
-    BUILDING_IRT_RES, 2048 spp, fb 16, er 8, two-pass 0.25, occluders on."""
+    """bench.py's big-scene bake through the port's CLI: --irt_res 1024,
+    2048 spp, fb 16, er 8, two-pass 0.25, occluders on."""
     from texir_code_tpu_torch.data import hdrio
 
     dt, launches, counts, _, rays = run_building_irrt(
-        torch, syn, path_mesh, BUILDING_IRT_RES, tmp, "building-slice")
+        torch, syn, path_mesh, IRT_RES, tmp, "building-slice")
     _need_modes("building-slice", launches, ("shared_uv", "per_ray_uv"))
     irt = hdrio.read_hdr(path_mesh.replace("out1.obj", "irt.hdr"), flip=True)
-    if (irt.shape != (BUILDING_IRT_RES, BUILDING_IRT_RES, 3)
-            or not np.isfinite(irt).all()):
+    if irt.shape != (IRT_RES, IRT_RES, 3) or not np.isfinite(irt).all():
         raise SystemExit("[building-slice] irt.hdr is wrong")
     return launches, counts
 
@@ -2383,7 +2382,7 @@ def phase_testers(torch, syn, path_mesh, mat_exps):
 
 def phase_relit_reference(torch, dev, syn):
     """One view's relit render (EvalMaterialModel.forward_relit,
-    shade_chunk 4096) on the card against the CPU at pano 64x128 with the
+    shade_chunk 4096) on the card against the CPU at pano REF_PANO with the
     full atlases, sample_light RELIT_REF_LIGHT and the same injected
     uniforms: rgb rel L2 <= 1e-4."""
     from texir_code_tpu_torch.eval.renderer import EvalMaterialModel
@@ -2394,11 +2393,12 @@ def phase_relit_reference(torch, dev, syn):
     albedo = rng.uniform(0.2, 0.8, (ALBEDO_RES, ALBEDO_RES, 3)).astype(np.float32)
     rough = rng.uniform(0.05, 0.7, (ROUGH_RES, ROUGH_RES, 1)).astype(np.float32)
     pos, mvp = bench_camera(syn)
-    shift = torch.from_numpy(rng.uniform(0, 1, (6 * 32 * 32, 4)).astype(np.float32))
+    res = REF_PANO[1] // 4
+    shift = torch.from_numpy(rng.uniform(0, 1, (6 * res * res, 4)).astype(np.float32))
     rgb, secs = {}, {}
     for d in (dev, torch.device("cpu")):
         m = EvalMaterialModel(syn.mesh, syn.hdr_texture, irt,
-                              pano_res=(64, 128), sample_light=RELIT_REF_LIGHT,
+                              pano_res=REF_PANO, sample_light=RELIT_REF_LIGHT,
                               render_knobs=dict(use_occluders=True), device=d)
         m.draw_relit_shift = lambda seed, b: shift
         p = MaterialParams(torch.tensor(albedo, device=d),
@@ -2408,7 +2408,8 @@ def phase_relit_reference(torch, dev, syn):
             rgb[d.type] = m.forward_relit(p, mvp, pos)["rgb"].cpu()
         secs[d.type] = time.time() - t0
     rel = float((rgb["cuda"] - rgb["cpu"]).norm() / rgb["cpu"].norm())
-    log(f"[relit-reference] relit render card vs cpu, pano 64x128, "
+    log(f"[relit-reference] relit render card vs cpu, pano "
+        f"{REF_PANO[0]}x{REF_PANO[1]}, "
         f"sample_light {list(RELIT_REF_LIGHT)}, atlases {ALBEDO_RES}^2/"
         f"{ROUGH_RES}^2: rgb rel L2 {rel:.3g} (card {secs['cuda']:.2f} s, "
         f"cpu {secs['cpu']:.2f} s)")
@@ -3300,7 +3301,7 @@ def phase_heads(torch, path_mesh, tmp):
 
 def phase_heads_reference(torch, path_mesh, tmp):
     """[heads-reference]: per head, one training step (full-width networks,
-    pano 64x128) on the card against the same step on the CPU, from the
+    pano REF_PANO) on the card against the same step on the CPU, from the
     same initial parameters (one seed) and the card's draws: rgb relative
     L2 1e-4, loss rel 1e-4, gradients relative L2 1e-3."""
     from texir_code_tpu_torch.train.exp import draw_seed
@@ -3311,7 +3312,8 @@ def phase_heads_reference(torch, path_mesh, tmp):
         for d in ("cuda", "cpu"):
             r = head_runner(head, path_mesh,
                             os.path.join(tmp, "head-ref-" + d), device=d,
-                            sets=("train.pano_img_res=[64,128]",))
+                            sets=("train.pano_img_res=[{},{}]".format(
+                                *REF_PANO),))
             (v,) = r.prepare_views([0])
             b = v["view"][0].numel() // 3
             if draws is None:
@@ -3331,7 +3333,8 @@ def phase_heads_reference(torch, path_mesh, tmp):
         rel = abs(lg - lc) / abs(lc)
         grad = max(float(np.linalg.norm(gg[k] - gc[k])
                          / max(np.linalg.norm(gc[k]), 1e-30)) for k in gc)
-        log(f"[heads-reference] {stage} step card vs cpu (pano 64x128, "
+        log(f"[heads-reference] {stage} step card vs cpu (pano "
+            f"{REF_PANO[0]}x{REF_PANO[1]}, "
             f"{b} pixels, full-width networks): rgb rel L2 {rgb:.3g}; loss "
             f"{lg:.7f} vs {lc:.7f} (rel {rel:.3g}); gradient rel L2 max "
             f"over {len(gc)} tensors {grad:.3g}; card {tg:.2f} s, CPU "
@@ -4015,7 +4018,7 @@ def rank_mat_main(rank, world, coord, backend, path_mesh, tmp, out, modes):
             res["spmd"] = dict(
                 losses=losses, step_ms=step_ms, reduce_ms=reduce_ms,
                 reduce_bytes=pmesh.COUNTS["all_reduce_bytes"] // MAT_DP_STEPS,
-                seconds=time.time() - t0,
+                seconds=time.time() - t0, base_mib=base / 2**20,
                 peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20,
                 atlas_sha256=params_digest([p.albedo, p.roughness]),
                 launches=dict(culled_walk_cuda.launches),
@@ -4043,7 +4046,7 @@ def rank_mat_main(rank, world, coord, backend, path_mesh, tmp, out, modes):
                 loss=loss, seconds=time.time() - t0,
                 rows=[runner.params.albedo.shape[0],
                       runner.params.roughness.shape[0]],
-                launches=dict(culled_walk_cuda.launches),
+                launches=dict(culled_walk_cuda.launches), base_mib=base / 2**20,
                 peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20)
             for name, t in zip(("albedo", "roughness"), grads):
                 np.save(os.path.join(tmp, f"{out}-tp-r{rank}-{name}.npy"),
@@ -4067,13 +4070,14 @@ def phase_spmd_mat(torch, path_mesh, tmp):
     algorithms, against this process's single steps from the same seeds;
     then the same as a one-rank NCCL group (bit-equal).  [atlas-tp] in the
     same two ranks: the atlases row-sharded, one exact-trilinear step
-    against the replicated one.  The single references run here while the
-    ranks run.  Peak memory: a process's high-water over the steps, less
-    what it held before it built its runner (the runner's tensors
-    included)."""
-    import threading
-
-    from texir_code_tpu_torch.parallel.dryrun import free_port, run_ranks
+    against the replicated one.  The single-process references run here
+    first and the ranks after them, so no timing shares the card with this
+    process's work; the two ranks share it with each other (a rank's step
+    and all-reduce are read while its sibling runs the same).  Peak memory:
+    a process's high-water over the steps, less what it held before it
+    built its runner (the runner's tensors included); that base is
+    printed beside it."""
+    from texir_code_tpu_torch.parallel.dryrun import free_port
 
     def ranks_cmds(out, world, backend, modes):
         coord = f"127.0.0.1:{free_port()}"
@@ -4083,20 +4087,6 @@ def phase_spmd_mat(torch, path_mesh, tmp):
     t0 = time.time()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    # the two gloo ranks start while this process runs the references
-    result = {}
-
-    def ranks_thread():
-        try:
-            result["logs"] = run_ranks(
-                ranks_cmds("dp", 2, "gloo", "spmd,tp"), 900,
-                env=dict(os.environ, OMP_NUM_THREADS="4"),
-                cwd=os.path.dirname(os.path.abspath(__file__)))
-        except RuntimeError as e:
-            result["error"] = str(e)
-
-    th = threading.Thread(target=ranks_thread)
-    th.start()
     torch.use_deterministic_algorithms(True)
     try:
         base = torch.cuda.memory_allocated()
@@ -4109,6 +4099,7 @@ def phase_spmd_mat(torch, path_mesh, tmp):
         tp_loss, tp_grads = mat_tp_loss_grads(torch, runner, views, n_rooms)
         tp_grads = [g.cpu().numpy() for g in tp_grads]
         tp_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        one_base = base / 2**20
         m.mip_stochastic = m.bilinear_stochastic = True
         torch.cuda.reset_peak_memory_stats()
         losses, step_ms, _, grads = mat_dp_steps(torch, runner, views,
@@ -4122,10 +4113,10 @@ def phase_spmd_mat(torch, path_mesh, tmp):
     finally:
         torch.use_deterministic_algorithms(False)
     t_ref = time.time() - t0
-    th.join()
-    if "error" in result:
-        raise SystemExit(f"[spmd-mat] {result['error']}")
-    t_ranks = time.time() - t0
+    t1 = time.time()
+    spawn_ranks(torch, "spmd-mat", ranks_cmds("dp", 2, "gloo", "spmd,tp"),
+                900)
+    t_ranks = time.time() - t1
     ranks = [rank_json(os.path.join(tmp, f"dp-r{r}.json")) for r in (0, 1)]
     log(f"[spmd-mat] the single-process references {t_ref:.2f} s; the two "
         f"gloo ranks {t_ranks:.2f} s with start-up and set-up (spmd part "
@@ -4149,12 +4140,14 @@ def phase_spmd_mat(torch, path_mesh, tmp):
                 f"sets up), the gradient all-reduce "
                 f"{', '.join(f'{x:.2f}' for x in s['reduce_ms'])} ms a step "
                 f"for {s['reduce_bytes']} bytes, peak {s['peak_mib']:.0f} "
-                f"MiB, pixels {s['shares']}; culled_walk launches (masks, "
+                f"MiB over {s['base_mib']:.0f} held before, pixels "
+                f"{s['shares']}; culled_walk launches (masks, "
                 f"views, steps) {s['launches']}")
             _need_modes(tag, s["launches"], ("shared_prim", "per_ray_uv"))
         log(f"[{tag}]   single process: ms a step "
             f"{', '.join(f'{x:.2f}' for x in one['step_ms'])}, peak "
-            f"{one['peak_mib']:.0f} MiB; losses {sp[0]['losses']} vs "
+            f"{one['peak_mib']:.0f} MiB over {one_base:.0f} held before; "
+            f"losses {sp[0]['losses']} vs "
             f"{one['losses']}: largest rel {loss_rel:.3g}; last step's "
             f"gradient rel L2 albedo {g_rel[0]:.3g}, roughness "
             f"{g_rel[1]:.3g}; atlases after {MAT_DP_STEPS} steps rel L2 "
@@ -4191,8 +4184,9 @@ def phase_spmd_mat(torch, path_mesh, tmp):
         f"|ref|): albedo {err[0]:.3g}, roughness {err[1]:.3g}; rel L2 "
         f"{rel_l2_np(got[0], tp_grads[0]):.3g}, "
         f"{rel_l2_np(got[1], tp_grads[1]):.3g}; peak "
-        f"{', '.join(f'{t['peak_mib']:.0f}' for t in tp)} MiB a rank vs "
-        f"{tp_peak:.0f} replicated; {', '.join(f'{t['seconds']:.2f}' for t in tp)}"
+        f"{', '.join(f'{t['peak_mib']:.0f}' for t in tp)} MiB a rank over "
+        f"{', '.join(f'{t['base_mib']:.0f}' for t in tp)} held before, vs "
+        f"{tp_peak:.0f} replicated over {one_base:.0f}; {', '.join(f'{t['seconds']:.2f}' for t in tp)}"
         f" s a rank with set-up; culled_walk launches a rank (masks, views, "
         f"the step) {[t['launches'] for t in tp]}")
     for t in tp:

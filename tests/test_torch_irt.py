@@ -261,9 +261,9 @@ def test_cli_head_stage_names_reach_their_runner(monkeypatch, name):
 
 
 def test_runner_unported_knob_raises(apartment, tmp_path):
-    """train.spmd=true in one process: the sharded baker with a one-rank
-    mesh, whose raw bake equals the plain baker's bit for bit."""
-    from texir_code_tpu_torch.parallel.bake import ShardedIrradianceBaker
+    """train.spmd=true in one process: the baker's batches split over the
+    world's one rank, whose raw bake equals the unsharded baker's bit for
+    bit."""
     from texir_code_tpu_torch.train.irt import IrrTextureRunner
     from texir_code_tpu_torch.config import _parse_value, parse_file
 
@@ -279,8 +279,7 @@ def test_runner_unported_knob_raises(apartment, tmp_path):
         runner = IrrTextureRunner(conf, exps_root=str(tmp_path / "exps"),
                                   texture_res=16, denoise=False,
                                   device="cpu")
-        assert isinstance(runner.baker, ShardedIrradianceBaker) == (
-            spmd == "true")
+        assert runner.baker.mesh.size == 1
         runner.run()
         raws.append(hdrio.read_hdr(
             path.replace("out1.obj", "0_irr_texture.hdr"), flip=True))

@@ -19,7 +19,12 @@ writes its results to npz; the tests compare:
   * the atlas-TP stage-2 step against the port's replicated step (loss
     rel 1e-5, gradients rtol 1e-4 / atol 1e-7);
   * the sharded GT traces of the three field tracers bit-equal to one
-    rank's.
+    rank's;
+  * the runners end to end: MatTrainSynRunner with the atlases
+    row-sharded (its substages, the save, the MatSyn metrics, then an
+    --is_continue restore) against the runner in one process, and an
+    epoch of each field stage (IRRF, IRF, PIL) with its GT traces split,
+    bit-equal to one process's.
 
 The scene of the Mat cases is tests/test_torch_gbuffer_material.py's
 (make_scene(48), pano 32×64, 8 specular samples, the exact fetch).  The
@@ -200,6 +205,42 @@ WORKER = textwrap.dedent('''
             ftbl, cluster_scene=fcl, spmd_mesh=sm).trace_gt(
                 pts, nrm, res[0] * res[1], seed=7)], axis=-1)
 
+    # -- the runners: MatSyn under atlas TP (a run, then a restore), the
+    # field stages under spmd (an epoch each) ------------------------------
+    import json
+
+    from texir_code_tpu_torch.config import parse_file
+    from texir_code_tpu_torch.train.irf_pil import (
+        IRFTrainRunner, PILTrainRunner)
+    from texir_code_tpu_torch.train.irrf import IRRFTrainRunner
+    from texir_code_tpu_torch.train.material_syn import MatTrainSynRunner
+
+    with open(f"{d}/runs.json") as f:
+        runs = json.load(f)
+
+    def conf_of(kind):
+        c = parse_file(runs[kind + "_conf"])
+        for k, v in runs[kind + "_sets"].items():
+            c.put(k, v)
+        return c
+
+    kw = dict(exps_root=f"{d}/exps-tp", max_epochs=1, device="cpu")
+    r = MatTrainSynRunner(conf_of("mat"), **kw)
+    assert r.model.atlas_mesh is not None and r.model.spmd_mesh is None
+    r.run()
+    out["run_tp_albedo"], out["run_tp_rough"] = r.atlases()
+    r = MatTrainSynRunner(conf_of("mat"), is_continue=True, **kw)
+    out["run_tp_restored_albedo"], out["run_tp_restored_rough"] = r.atlases()
+    out["run_tp_rows_albedo"] = r.params.albedo.numpy()
+    out["run_tp_rows_rough"] = r.params.roughness.numpy()
+    for name, cls in (("irrf", IRRFTrainRunner), ("irf", IRFTrainRunner),
+                      ("pil", PILTrainRunner)):
+        r = cls(conf_of("irrf" if name == "irrf" else "field"), exps_root=f"{d}/exps-{name}", max_epochs=1,
+                device="cpu")
+        assert r.model.spmd_mesh.size == 2
+        out["run_" + name] = np.concatenate([
+            p.detach().reshape(-1).numpy() for p in r.run().parameters()])
+
     np.savez(f"{d}/rank{rank}.npz", **out)
     shutdown_multihost()
 ''')
@@ -257,6 +298,7 @@ def ranks(tmp_path_factory):
         field_pts=pts, field_nrm=nrm, field_res=np.asarray(FIELD_RES),
     )
     np.savez(d / "inputs.npz", **inp)
+    runs = _runner_scans(d)
     worker = d / "worker.py"
     worker.write_text(WORKER)
     coord = f"127.0.0.1:{free_port()}"
@@ -266,7 +308,9 @@ def ranks(tmp_path_factory):
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for r in (0, 1)]
     try:
-        jax_out = _jax_results(scene, inp)  # while the ranks run
+        # while the ranks run
+        jax_out = _jax_results(scene, inp)
+        one_runs = _one_process_runs(runs, d)
         outs = [p.communicate(timeout=240)[0].decode() for p in procs]
     finally:
         for p in procs:
@@ -274,8 +318,88 @@ def ranks(tmp_path_factory):
                 p.kill()
     for p, o in zip(procs, outs):
         assert p.returncode == 0, o
-    return dict(inp=inp, jax=jax_out,
+    return dict(inp=inp, jax=jax_out, one_runs=one_runs,
                 r=[dict(np.load(d / f"rank{r}.npz")) for r in (0, 1)])
+
+
+def _runner_scans(d):
+    """The runner cases' scans and confs, written to d/runs.json: a MatSyn
+    scan of the small apartment (3 views, the last held out; 32² atlases,
+    pano 32×64, atlas_tp, the stochastic knobs off) and a field scan of
+    make_scene(48)."""
+    import json
+
+    from texir_code_tpu_torch.data import hdrio
+    from texir_code_tpu_torch.data.export import export_reference_layout
+    from texir_code_tpu_torch.data.synthetic import make_apartment_scene
+    from texir_code_tpu_torch.data.synthetic import make_scene as t_scene
+
+    mat = export_reference_layout(
+        make_apartment_scene(atlas_res=32, subdiv=2, clutter=0),
+        str(d / "mat-scan"), n_views=3, pano_res=(32, 64),
+        gt_render="material", gt_spp=8, irt_spp=32, device="cpu")
+    with open(str(d / "mat-scan" / "info" / "novel.txt"), "w") as f:
+        f.write("view002\n")
+    hdrio.write_hdr(mat.replace("out1.obj", "irt.hdr"), hdrio.read_hdr(
+        mat.replace("out1.obj", "gt_irt.hdr"), flip=True), flip=True)
+    field = export_reference_layout(t_scene(atlas_res=48),
+                                    str(d / "field-scan"), n_views=2,
+                                    pano_res=(32, 64), device="cpu")
+    field_sets = {"train.path_mesh_open3d": field,
+                  "train.samples_point_mesh": 64, "train.env_res": [4, 8],
+                  "val.env_res": [16, 32], "train.val_sample_res": [4, 8],
+                  "val.pil_points": 64, "val.pil_spp": 32}
+    runs = dict(
+        mat_conf=os.path.join(ROOT, "configs", "mat_synthetic.conf"),
+        mat_sets={"train.path_mesh_open3d": mat,
+                  "train.pano_img_res": [32, 64],
+                  "train.mat_albedo_res": 32, "train.mat_roughness_res": 32,
+                  "train.sample_light": [32, 4], "train.plot_freq": 0,
+                  "train.atlas_tp": True,
+                  # the TP lookups are exact trilinear: the replicated
+                  # run samples the same way
+                  "models.render.mip_stochastic": False,
+                  "models.render.bilinear_stochastic": False},
+        field_conf=os.path.join(ROOT, "configs", "irrf_synthetic.conf"),
+        field_sets=field_sets,
+        irrf_conf=os.path.join(ROOT, "configs", "irrf_synthetic.conf"),
+        irrf_sets=dict(field_sets, **{"models.irrf_network.dims": [64, 64]}))
+    with open(d / "runs.json", "w") as f:
+        json.dump(runs, f)
+    return runs
+
+
+def _one_process_runs(runs, d):
+    """The runner cases in this process alone: the MatSyn atlases
+    (train.atlas_tp asks for nothing with one rank: replicated) and each
+    field stage's parameters after its epoch."""
+    from texir_code_tpu_torch.config import parse_file
+    from texir_code_tpu_torch.train.irf_pil import (
+        IRFTrainRunner,
+        PILTrainRunner,
+    )
+    from texir_code_tpu_torch.train.irrf import IRRFTrainRunner
+    from texir_code_tpu_torch.train.material_syn import MatTrainSynRunner
+
+    def conf_of(kind):
+        c = parse_file(runs[kind + "_conf"])
+        for k, v in runs[kind + "_sets"].items():
+            c.put(k, v)
+        return c
+
+    r = MatTrainSynRunner(conf_of("mat"), exps_root=str(d / "one-tp"),
+                          max_epochs=1, device="cpu")
+    assert r.model.atlas_mesh is None
+    r.run()
+    out = dict(zip(("albedo", "rough"), r.atlases()))
+    for name, cls in (("irrf", IRRFTrainRunner), ("irf", IRFTrainRunner),
+                      ("pil", PILTrainRunner)):
+        r = cls(conf_of("irrf" if name == "irrf" else "field"),
+                exps_root=str(d / f"one-{name}"), max_epochs=1,
+                device="cpu")
+        out[name] = np.concatenate([p.detach().reshape(-1).numpy()
+                                    for p in r.run().parameters()])
+    return out
 
 
 def _jax_results(scene, inp):
@@ -371,7 +495,23 @@ def test_one_rank_mesh_collectives_are_identities():
     assert TM.all_gather_rows(x, mesh, [3]) is x
     assert mesh.all_reduce_(x.clone()).equal(x)
     assert TM.shard_along(mesh, x).equal(x) and TM.replicated(mesh, x) is x
-    assert mesh.broadcast_object({"a": 1}) == {"a": 1}
+    assert mesh.broadcast_(x.clone()).equal(x)
+
+
+@pytest.mark.parametrize("entry", ["rank_device", "make_device_mesh",
+                                   "dryrun_multichip"])
+def test_entry_points_need_a_card_unless_cpu(entry):
+    """The mesh and the dry run default to the card: without one they
+    raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry point would run on it")
+    from texir_code_tpu_torch.parallel import dryrun
+
+    fn = {"rank_device": TM.rank_device,
+          "make_device_mesh": TM.make_device_mesh,
+          "dryrun_multichip": dryrun.dryrun_multichip}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fn()
 
 
 def test_parallel_meshes_from_conf_one_rank():
@@ -458,6 +598,47 @@ def test_sharded_trace_gt_bit_equal_to_one_rank(ranks, tracer):
     assert np.isfinite(one).all() and one.any()
     np.testing.assert_array_equal(r0["field_" + tracer], one)
     np.testing.assert_array_equal(r1["field_" + tracer], one)
+
+
+def test_atlas_tp_matsyn_run_matches_one_process(ranks):
+    """Three substages, the save and the MatSyn metrics through
+    MatTrainSynRunner on two ranks with the atlases row-sharded: the
+    gathered atlases equal on both ranks and against the runner in one
+    process (replicated) within relative 1e-5, elementwise and in L2 (the
+    TP fetch's backward scatters into the local rows, and those sums round
+    apart from the whole atlas's by an ulp)."""
+    r0, r1 = ranks["r"]
+    one = ranks["one_runs"]
+    for k in ("albedo", "rough"):
+        got = r0["run_tp_" + k]
+        np.testing.assert_array_equal(got, r1["run_tp_" + k])
+        assert got.shape == one[k].shape
+        assert not np.array_equal(got, np.full_like(got, got.flat[0]))
+        np.testing.assert_allclose(got, one[k], rtol=1e-5, atol=0)
+        assert np.linalg.norm(got - one[k]) <= 1e-5 * np.linalg.norm(one[k])
+
+
+def test_atlas_tp_matsyn_restore_gives_each_rank_its_rows(ranks):
+    """--is_continue: rank 0 reads the checkpoint and each rank keeps its
+    rows of what the run saved."""
+    for r, out in enumerate(ranks["r"]):
+        for k in ("albedo", "rough"):
+            saved = out["run_tp_" + k]
+            np.testing.assert_array_equal(out["run_tp_restored_" + k], saved)
+            h = saved.shape[0] // 2
+            np.testing.assert_array_equal(out["run_tp_rows_" + k],
+                                          saved[r * h:(r + 1) * h])
+
+
+@pytest.mark.parametrize("stage", ["irrf", "irf", "pil"])
+def test_field_runner_two_ranks_match_one_process(ranks, stage):
+    """An epoch of the field stage with its GT traces split over two ranks:
+    the parameters bit-equal on both ranks and to the run in one
+    process."""
+    r0, r1 = ranks["r"]
+    one = ranks["one_runs"][stage]
+    np.testing.assert_array_equal(r0["run_" + stage], one)
+    np.testing.assert_array_equal(r1["run_" + stage], one)
 
 
 # ---------------------------------------------------------------------------

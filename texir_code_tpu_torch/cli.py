@@ -244,16 +244,16 @@ def main(argv=None):
     multi = args.command == "train" and (args.coordinator
                                          or args.num_processes)
     if multi:
+        import torch.distributed as dist
+
         from texir_code_tpu_torch.parallel.multihost import (
             initialize_multihost,
-            pick_backend,
         )
 
-        backend = ("gloo" if args.device == "cpu"
-                   else pick_backend(args.num_processes or 1))
         rank, world = initialize_multihost(
             args.coordinator, args.num_processes, args.process_id,
-            backend=backend)
+            device=args.device)
+        backend = dist.get_backend() if dist.is_initialized() else "no group"
         print(f"multihost: process {rank}/{world} ({backend})", flush=True)
         if args.device == "cuda" and torch.cuda.is_available():
             args.device = f"cuda:{torch.cuda.current_device()}"

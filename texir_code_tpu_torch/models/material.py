@@ -38,7 +38,8 @@ Multi-device (parallel/, one rank per device), as the JAX package:
     its unsharded candidate list) with draws keyed by the global pixel id;
     `all_gather_rows` assembles the outputs, and its backward hands each
     rank its own pixels' cotangent.  The caller all-reduces the atlas
-    gradients (`DeviceMesh.all_reduce_grads`).
+    gradients (`DeviceMesh.all_reduce_grads`).  `shade_chunk` chunks a
+    rank's share (the JAX package does not chunk under a mesh).
   * `atlas_mesh` (tensor parallel): `params` hold this rank's rows of
     each atlas and the three material lookups go through
     `parallel.atlas_tp.tp_sample_materials` (exact trilinear: the
@@ -348,15 +349,23 @@ class MaterialModel:
         position = view["position"]
         f, h, w, _ = normal.shape
         b = f * h * w
-        if self.spmd_mesh is not None:
-            return self._forward_spmd(params, view, cam, stage, seed,
-                                      spec_shift)
-        if spec_shift is None:
-            spec_shift = self.draw_spec_shift(seed, b)
-        spec_shift = torch.as_tensor(spec_shift, dtype=torch.float32,
-                                     device=self.device)
-        args = (view["uv"], view["lod_a"], view["lod_r"], view["lod_i"],
-                normal.reshape(b, 3), position.reshape(b, 3), spec_shift)
+        # this rank's pixels: all of them, or its share under spmd_mesh,
+        # drawn with their global ids
+        shares, row = ([slice(0, b)], None) if self.spmd_mesh is None \
+            else self.pixel_shares(b)
+        mine = shares[self.spmd_mesh.rank if self.spmd_mesh else 0]
+        if spec_shift is None and self.spmd_mesh is not None:
+            spec_shift = self.draw_spec_shift(
+                seed, b, ids=torch.arange(mine.start, mine.stop,
+                                          device=self.device))
+        else:
+            if spec_shift is None:
+                spec_shift = self.draw_spec_shift(seed, b)
+            spec_shift = torch.as_tensor(spec_shift, dtype=torch.float32,
+                                         device=self.device)[mine]
+        args = tuple(a[mine] for a in (
+            view["uv"], view["lod_a"], view["lod_r"], view["lod_i"],
+            normal.reshape(b, 3), position.reshape(b, 3))) + (spec_shift,)
         if self.atlas_mesh is not None:
             from texir_code_tpu_torch.parallel.atlas_tp import (
                 tp_sample_materials,
@@ -376,44 +385,20 @@ class MaterialModel:
 
         def shade(a):
             return self._shade_flat(alb_pyr, rgh_pyr, params.roughness, *a,
-                                    cam, stage)
+                                    cam, stage, row_width=row)
 
         if self.shade_chunk:
             # pixel chunks, as the reference's split_input; the pyramids
             # are built once for all of them
-            rgb, albedo, roughness, roughness_womip = map_chunked(
-                shade, args, int(self.shade_chunk))
+            outs = map_chunked(shade, args, int(self.shade_chunk))
         else:
-            rgb, albedo, roughness, roughness_womip = shade(args)
-        return self._outputs(stage, view, rgb, albedo, roughness,
-                             roughness_womip)
+            outs = shade(args)
+        if self.spmd_mesh is not None:
+            from texir_code_tpu_torch.parallel.mesh import all_gather_rows
 
-    def _forward_spmd(self, params, view, cam, stage, seed, spec_shift):
-        """_forward under spmd_mesh: this rank shades its share of the
-        pixels, with draws keyed by their global ids, and the outputs are
-        gathered (shade_chunk does not apply, as in the JAX package)."""
-        from texir_code_tpu_torch.parallel.mesh import all_gather_rows
-
-        b = view["uv"].shape[0]
-        shares, row = self.pixel_shares(b)
-        mine = shares[self.spmd_mesh.rank]
-        if spec_shift is None:
-            spec_shift = self.draw_spec_shift(
-                seed, b, ids=torch.arange(mine.start, mine.stop,
-                                          device=self.device))
-        else:
-            spec_shift = torch.as_tensor(spec_shift, dtype=torch.float32,
-                                         device=self.device)[mine]
-        args = tuple(a[mine] for a in (
-            view["uv"], view["lod_a"], view["lod_r"], view["lod_i"],
-            view["normal"].reshape(b, 3), view["position"].reshape(b, 3)))
-        alb_pyr = build_mip_pyramid(params.albedo, self.max_mip_level)
-        rgh_pyr = build_mip_pyramid(params.roughness, self.max_mip_level)
-        outs = self._shade_flat(alb_pyr, rgh_pyr, params.roughness, *args,
-                                spec_shift, cam, stage, row_width=row)
-        counts = [sl.stop - sl.start for sl in shares]
-        rgb, albedo, roughness, roughness_womip = (
-            all_gather_rows(o, self.spmd_mesh, counts) for o in outs)
+            counts = [sl.stop - sl.start for sl in shares]
+            outs = [all_gather_rows(o, self.spmd_mesh, counts) for o in outs]
+        rgb, albedo, roughness, roughness_womip = outs
         return self._outputs(stage, view, rgb, albedo, roughness,
                              roughness_womip)
 

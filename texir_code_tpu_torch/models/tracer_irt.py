@@ -209,6 +209,7 @@ class IrradianceTextureBaker:
         max_leaves: int = 768,
         cluster_scene=None,
         wedges: int = 4,
+        mesh=None,
     ):
         """Args:
             tbl: lighting scene; the bake runs on its device.
@@ -227,7 +228,17 @@ class IrradianceTextureBaker:
                 early-exiting walk (exact); takes precedence over
                 fan_scene.
             wedges: direction wedges per texel (spp/wedges rays per row).
+            mesh: parallel.mesh.DeviceMesh whose ranks split the texel
+                batches (rank r takes the contiguous share
+                process_local_slice(nb, r, world) and one all-reduce (SUM)
+                merges the disjoint rows: adding zeros changes no bit);
+                default: this process alone.  Each texel's random numbers
+                are keyed by its global id and every rank runs whole
+                batches, so the texture is bit-identical for any rank
+                count.
         """
+        from texir_code_tpu_torch.parallel.mesh import one_rank_mesh
+
         self.tbl = tbl
         self.spp = spp
         self.texel_batch = texel_batch
@@ -236,6 +247,8 @@ class IrradianceTextureBaker:
         self.max_leaves = max_leaves
         self.cluster_scene = cluster_scene
         self.wedges = wedges
+        self.mesh = mesh if mesh is not None else one_rank_mesh(
+            tbl.planes[0].device)
         self.fan_block = 32
         # rows per independent exit group (0 = one group per fan block);
         # each group gets its own, tighter candidate list
@@ -433,15 +446,6 @@ class IrradianceTextureBaker:
             tuple(normals[:, k] for k in range(3)), texel_ids, seed,
             self.spp, self.surface_eps, samples=samples), dim=-1)
 
-    def _batches(self, nb: int) -> range:
-        """The batches this process traces (all of them here; a share under
-        parallel.bake.ShardedIrradianceBaker)."""
-        return range(nb)
-
-    def _merge(self, out: torch.Tensor) -> None:
-        """Complete `out`, the rows of the traced batches (zeros elsewhere),
-        in place (nothing to do in one process)."""
-
     def bake(
         self,
         geom: GeometryTextures,
@@ -452,7 +456,11 @@ class IrradianceTextureBaker:
 
         Streams texel batches (Morton-ordered, so each block of rows is a
         tight spatial neighborhood) through `bake_batch`; total rays =
-        valid_texels × spp.  The bake seed is drawn from `generator`."""
+        valid_texels × spp.  The bake seed is drawn from `generator`.
+        Under a mesh of several ranks each traces its share of the batches
+        and every rank returns the whole texture."""
+        from texir_code_tpu_torch.parallel.mesh import pad_to_multiple
+
         dev = self.device
         res = geom.position.shape[0]
         vr, vc = np.nonzero(geom.valid)
@@ -460,19 +468,21 @@ class IrradianceTextureBaker:
         vr, vc = vr[order], vc[order]
         n = len(vr)
         bs = self.texel_batch
-        nb = (n + bs - 1) // bs
-        pts = torch.zeros((nb * bs, 3), dtype=torch.float32, device=dev)
-        nrm = torch.zeros((nb * bs, 3), dtype=torch.float32, device=dev)
+        padded = pad_to_multiple(n, bs)
+        nb = padded // bs
+        pts = torch.zeros((padded, 3), dtype=torch.float32, device=dev)
+        nrm = torch.zeros((padded, 3), dtype=torch.float32, device=dev)
         nrm[:, 2] = 1.0
         pts[:n] = torch.from_numpy(geom.position[vr, vc]).to(dev)
         nrm[:n] = torch.from_numpy(geom.normal[vr, vc]).to(dev)
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
-        ids = torch.arange(nb * bs, dtype=torch.int64, device=dev)
-        out = torch.zeros((nb * bs, 3), dtype=torch.float32, device=dev)
+        ids = torch.arange(padded, dtype=torch.int64, device=dev)
+        out = torch.zeros((padded, 3), dtype=torch.float32, device=dev)
         # batches whose two-pass trace took the full-trace branch
         self.overflowed_batches = []
         twopass = cast_fans_culled_twopass.counts
-        mine = self._batches(nb)
+        share = self.mesh.share(nb)
+        mine = range(share.start, share.stop)
         for k, i in enumerate(mine):
             sl = slice(i * bs, (i + 1) * bs)
             before = twopass["overflows"]
@@ -481,7 +491,7 @@ class IrradianceTextureBaker:
                 self.overflowed_batches.append(i)
             if progress and (k + 1) % 16 == 0:
                 print(f"bake: {k + 1}/{len(mine)} batches")
-        self._merge(out)
+        self.mesh.all_reduce_(out)  # the ranks' disjoint rows
         tex = np.zeros((res, res, 3), np.float32)
         tex[vr, vc] = out[:n].cpu().numpy()
         return tex

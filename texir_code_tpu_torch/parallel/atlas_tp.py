@@ -34,6 +34,7 @@ from texir_code_tpu_torch.parallel.mesh import (
     DeviceMesh,
     all_gather_rows,
     psum_replicated,
+    shard_along,
 )
 
 
@@ -248,8 +249,7 @@ def shard_atlas(mesh: DeviceMesh, tex: torch.Tensor) -> torch.Tensor:
     if h % mesh.size:
         raise ValueError(f"atlas height {h} not divisible by {mesh.size} "
                          "ranks")
-    rows = h // mesh.size
-    return tex[mesh.rank * rows:(mesh.rank + 1) * rows].contiguous()
+    return shard_along(mesh, tex).contiguous()
 
 
 def gather_atlas(mesh: DeviceMesh, tex_local: torch.Tensor) -> torch.Tensor:
@@ -268,11 +268,10 @@ def tp_sample_materials(mesh: DeviceMesh, albedo: torch.Tensor,
     replicated) → replicated (albedo_px, roughness_px,
     roughness_womip_px): trilinear from each pyramid, and the base level's
     bilinear roughness (the reference's stage-1 path)."""
-    spec_a = atlas_spec(mesh, albedo, max_levels)
+    alb = tp_texture_sample(mesh, albedo, uv, lod_a, max_levels)
+    # the roughness pyramid serves two lookups
     spec_r = atlas_spec(mesh, roughness, max_levels)
-    a_big, a_tail = tp_build_pyramid_local(albedo, spec_a, mesh)
     r_big, r_tail = tp_build_pyramid_local(roughness, spec_r, mesh)
-    alb = tp_sample_local(a_big, a_tail, spec_a, uv, lod_a, mesh)
     rgh = tp_sample_local(r_big, r_tail, spec_r, uv, lod_r, mesh)
     lvl0 = torch.zeros(uv.shape[:-1], dtype=torch.int64, device=uv.device)
     w_big, w_tail = tp_fetch_level_local(r_big, r_tail, spec_r, lvl0, uv, mesh)

@@ -1,44 +1,31 @@
 """Sharded IrT baking: texel batches split over the ranks.
 
 The port of the JAX package's `parallel/bake.py`.  The bake is
-embarrassingly parallel over texels: rank r takes the contiguous share
-`process_local_slice(nb, r, world)` of the Morton-ordered batches and runs
-the single baker's own batch path on each (the culled walk, kernel B1
-`shared_uv`, with the multi-room knobs), and one all-reduce (SUM) of the
-[n + pad, 3] output merges the disjoint rows: adding zeros changes no bit.
+embarrassingly parallel over texels, so the sharding lives in
+`IrradianceTextureBaker` itself (its `mesh` argument): rank r takes the
+contiguous share `process_local_slice(nb, r, world)` of the Morton-ordered
+batches and runs the single baker's own batch path on each (the culled
+walk, kernel B1 `shared_uv`, with the multi-room knobs), and one
+all-reduce (SUM) of the [n + pad, 3] output merges the disjoint rows.
 The scene (TBL, cluster rows, atlas) is replicated.
 
-Each texel's random numbers are a function of (seed, global texel id), and
-every rank runs whole batches of the single baker's size, so the texture
-is bit-identical for any rank count.
+`ShardedIrradianceBaker` is the JAX package's name for that baker over
+the world's ranks.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-import torch
-
 from texir_code_tpu_torch.models.tracer_irt import IrradianceTextureBaker
-from texir_code_tpu_torch.parallel.mesh import DeviceMesh, make_device_mesh
-from texir_code_tpu_torch.parallel.multihost import process_local_slice
+from texir_code_tpu_torch.parallel.mesh import DeviceMesh
+from texir_code_tpu_torch.parallel.multihost import global_mesh
 
 
 class ShardedIrradianceBaker(IrradianceTextureBaker):
-    """IrT baker whose batches are split over the ranks of `mesh`; `bake`
+    """IrradianceTextureBaker whose mesh defaults to the world's; `bake`
     returns the whole texture on every rank."""
 
     def __init__(self, tbl, mesh: Optional[DeviceMesh] = None, **kw):
-        """Args: those of IrradianceTextureBaker, and `mesh` (default: the
-        world's, parallel.mesh.make_device_mesh)."""
-        super().__init__(tbl, **kw)
-        self.mesh = mesh if mesh is not None else make_device_mesh(
-            device=self.device)
-
-    def _batches(self, nb: int) -> range:
-        s = process_local_slice(nb, self.mesh.rank, self.mesh.size)
-        return range(s.start, s.stop)
-
-    def _merge(self, out: torch.Tensor) -> None:
-        # disjoint batch ranges: the sum merges them
-        self.mesh.all_reduce_(out)
+        super().__init__(tbl, mesh=mesh or global_mesh(tbl.planes[0].device),
+                         **kw)

@@ -5,7 +5,8 @@ on torch.distributed:
 
     python -m texir_code_tpu_torch.parallel.dryrun [--ranks 2] [--device cpu]
 
-spawns `--ranks` processes that join one process group (gloo on the CPU
+spawns `--ranks` processes, on the card unless --device cpu asks for the
+CPU, that join one process group (gloo on the CPU
 and for ranks that share a card, NCCL when each has its own) and run one
 stage-2 step of the MaterialModel on JAX's tiny setup (make_scene(24),
 pano 16×32, spec 4, 16² atlases) with the pixels split over the ranks,
@@ -171,10 +172,14 @@ def dryrun_rank(device) -> dict:
                 all_reduce_bytes=nbytes)
 
 
-def dryrun_multichip(n_ranks: int = 2, device: str = "cpu",
+def dryrun_multichip(n_ranks: int = 2, device: str = "cuda",
                      timeout: float = 600.0) -> dict:
-    """Spawn n_ranks processes that run `dryrun_rank` in one group and
-    return rank 0's summary; raises if a rank fails."""
+    """Spawn n_ranks processes that run `dryrun_rank` in one group on
+    `device` (the card unless the caller asks for the CPU) and return rank
+    0's summary; raises if a rank fails."""
+    from texir_code_tpu_torch.device import resolve_device
+
+    device = resolve_device(device).type
     coord = f"127.0.0.1:{free_port()}"
     cmds = [[sys.executable, "-m", "texir_code_tpu_torch.parallel.dryrun",
              "--rank", str(r), "--ranks", str(n_ranks), "--coordinator",
@@ -188,7 +193,7 @@ def dryrun_multichip(n_ranks: int = 2, device: str = "cpu",
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="texir_code_tpu_torch.parallel.dryrun")
     parser.add_argument("--ranks", type=int, default=2)
-    parser.add_argument("--device", default="cpu")
+    parser.add_argument("--device", default="cuda")
     parser.add_argument("--rank", type=int, default=None,
                         help="(internal) run as this rank")
     parser.add_argument("--coordinator", default=None)
@@ -203,7 +208,7 @@ def main(argv=None) -> int:
 
     torch.set_num_threads(1)
     initialize_multihost(args.coordinator, args.ranks, args.rank,
-                         backend="gloo" if args.device == "cpu" else None)
+                         device=args.device)
     try:
         device = args.device
         if device == "cuda":

@@ -126,16 +126,6 @@ class DeviceMesh:
             dist.broadcast(t, src, group=self.group)
         return t
 
-    def broadcast_object(self, obj, src: int = 0):
-        """Rank `src`'s picklable `obj` on every rank."""
-        if self.group is None:
-            return obj
-        box = [obj]
-        dist.broadcast_object_list(box, src, group=self.group,
-                                   device=self.device
-                                   if self.backend == "nccl" else None)
-        return box[0]
-
     def all_reduce_grads(self, tensors: Sequence[torch.Tensor]) -> None:
         """Sum the .grad of each tensor over the ranks (the data-parallel
         step's gradient all-reduce); a missing grad counts as zeros."""
@@ -195,11 +185,19 @@ def all_gather_rows(x: torch.Tensor, mesh: DeviceMesh,
 
 
 def rank_device() -> torch.device:
-    """This rank's card (cuda:(local rank % device count)), or the CPU on
-    a host without one."""
-    if torch.cuda.is_available():
-        return torch.device("cuda", local_rank() % torch.cuda.device_count())
-    return torch.device("cpu")
+    """This rank's card, cuda:(local rank % device count); raises on a host
+    without one (the CPU is the caller's explicit choice: pass device)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to build a mesh "
+            "of CPU ranks")
+    return torch.device("cuda", local_rank() % torch.cuda.device_count())
+
+
+def one_rank_mesh(device) -> DeviceMesh:
+    """A mesh of this process alone (collectives are identities), whether
+    or not a process group is up."""
+    return DeviceMesh(None, 0, 1, torch.device(device))
 
 
 def make_device_mesh(n_devices: Optional[int] = None,
@@ -207,13 +205,14 @@ def make_device_mesh(n_devices: Optional[int] = None,
     """The world's mesh when a process group is up, else a one-rank mesh
     (collectives are identities).  n_devices, when given, must match.
 
-    device: this rank's device (default: rank_device())."""
+    device: this rank's device (default: rank_device(), which needs a
+        card)."""
     dev = torch.device(device) if device is not None else rank_device()
     if dist.is_initialized():
         size = dist.get_world_size()
         mesh = DeviceMesh(dist.group.WORLD, dist.get_rank(), size, dev)
     else:
-        mesh = DeviceMesh(None, 0, 1, dev)
+        mesh = one_rank_mesh(dev)
     if n_devices is not None and n_devices != mesh.size:
         raise ValueError(f"make_device_mesh({n_devices}): the world has "
                          f"{mesh.size} ranks")

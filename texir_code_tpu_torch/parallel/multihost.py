@@ -34,11 +34,12 @@ def local_rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
-def pick_backend(num_processes: int) -> str:
-    """'nccl' when every rank of this host has a card of its own, else
-    'gloo' (the CPU, or ranks that share a card).  The ranks of this host:
-    torchrun's LOCAL_WORLD_SIZE, else all of them (one host)."""
-    if not torch.cuda.is_available():
+def pick_backend(num_processes: int, device="cuda") -> str:
+    """'nccl' when the ranks run on cards and every rank of this host has
+    one of its own, else 'gloo' (CPU ranks, or ranks that share a card).
+    The ranks of this host: torchrun's LOCAL_WORLD_SIZE, else all of them
+    (one host)."""
+    if torch.device(device).type != "cuda" or not torch.cuda.is_available():
         return "gloo"
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", num_processes))
     return "nccl" if local_world <= torch.cuda.device_count() else "gloo"
@@ -49,6 +50,7 @@ def initialize_multihost(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     backend: Optional[str] = None,
+    device="cuda",
 ) -> Tuple[int, int]:
     """Join the process group (nothing to do in a one-process run).
 
@@ -57,7 +59,9 @@ def initialize_multihost(
         num_processes / process_id: the world size and this rank; given a
             coordinator without them, RANK / WORLD_SIZE from the
             environment (torchrun's counterpart of JAX's autodetect).
-        backend: 'nccl' or 'gloo'; None picks one (pick_backend).
+        backend: 'nccl' or 'gloo'; None picks one for `device`
+            (pick_backend).
+        device: where the ranks' work runs ('cuda' or 'cpu').
     Returns:
         (rank, world size).  On a host with cards, rank r's current CUDA
         device becomes cuda:(local rank % device count).
@@ -79,7 +83,7 @@ def initialize_multihost(
         if num_processes != 1:
             raise ValueError("initialize_multihost: process_id is required")
         process_id = 0
-    backend = backend or pick_backend(num_processes)
+    backend = backend or pick_backend(num_processes, device)
     if torch.cuda.is_available():
         torch.cuda.set_device(
             int(os.environ.get("LOCAL_RANK", process_id))

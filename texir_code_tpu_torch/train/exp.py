@@ -37,13 +37,14 @@ def is_writer() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
-def _agreed(value):
+def agreed(value):
     """Rank 0's `value` on every rank (the value itself in one process)."""
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return value
-    from texir_code_tpu_torch.parallel.mesh import make_device_mesh
-
-    return make_device_mesh().broadcast_object(value)
+    box = [value]
+    # NCCL stages the object on this rank's current card, gloo on the host
+    dist.broadcast_object_list(box, 0)
+    return box[0]
 
 
 class ExperimentDir:
@@ -62,13 +63,13 @@ class ExperimentDir:
             if timestamp in (None, "latest") and self.is_writer:
                 stamps = sorted(os.listdir(self.base)) if os.path.isdir(self.base) else []
                 timestamp = stamps[-1] if stamps else None
-            timestamp = _agreed(timestamp)
+            timestamp = agreed(timestamp)
             if timestamp is None:
                 raise FileNotFoundError(f"nothing to continue in {self.base}")
             self.timestamp = timestamp
             self.continued = True
         else:
-            self.timestamp = _agreed(
+            self.timestamp = agreed(
                 datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S"))
             self.continued = False
 

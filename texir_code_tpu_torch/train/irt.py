@@ -9,8 +9,8 @@ models/mat_nvdiffrast.py:73).
 
 The port of the JAX package's `train/irt.py`.  With more than one rank
 (train.spmd "auto", the default) or train.spmd = true the texel batches
-are split over the ranks (parallel.bake.ShardedIrradianceBaker) and every
-rank ends with the whole texture; rank 0 writes it.
+are split over the ranks (IrradianceTextureBaker's mesh, parallel.bake)
+and every rank ends with the whole texture; rank 0 writes it.
 """
 
 from __future__ import annotations
@@ -55,10 +55,7 @@ class IrrTextureRunner:
         from texir_code_tpu_torch.ops.fan_raycast import FanScene
         from texir_code_tpu_torch.ops.pallas_culled import ClusterScene
 
-        from texir_code_tpu_torch.parallel.mesh import (
-            make_device_mesh,
-            world_size,
-        )
+        from texir_code_tpu_torch.parallel.multihost import global_mesh
 
         self.device = resolve_device(device)
         self.conf = conf
@@ -101,21 +98,15 @@ class IrrTextureRunner:
         clusters = ClusterScene.from_fan(
             fan, lb=lb, dense=True, device=self.device
         )
-        baker_kw = dict(spp=int(spp), texel_batch=texel_batch,
-                        cluster_scene=clusters, wedges=wedges)
         # the JAX runner's rule (texir_code_tpu/train/irt.py:99-103), with
         # ranks in place of devices
+        world = global_mesh(self.device)
         spmd = conf.get("train.spmd", "auto")
-        if spmd is True or (spmd == "auto" and world_size() > 1):
-            from texir_code_tpu_torch.parallel.bake import (
-                ShardedIrradianceBaker,
-            )
-
-            self.baker = ShardedIrradianceBaker(
-                self.tbl, mesh=make_device_mesh(device=self.device),
-                **baker_kw)
-        else:
-            self.baker = IrradianceTextureBaker(self.tbl, **baker_kw)
+        sharded = spmd is True or (spmd == "auto" and world.size > 1)
+        self.baker = IrradianceTextureBaker(
+            self.tbl, spp=int(spp), texel_batch=texel_batch,
+            cluster_scene=clusters, wedges=wedges,
+            mesh=world if sharded else None)
         if kd > 0:
             self.baker.batches_per_dispatch = kd
         self.baker.fan_block = fan_block

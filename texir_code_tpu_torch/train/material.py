@@ -58,6 +58,7 @@ from texir_code_tpu_torch.train.exp import (
     SEED,
     ExperimentDir,
     adam_staircase,
+    agreed,
     draw_seed,
     seed_everything,
 )
@@ -116,7 +117,9 @@ class MatTrainRunner:
         )
         from texir_code_tpu_torch.parallel.mesh import (
             parallel_meshes_from_conf,
+            replicated,
         )
+        from texir_code_tpu_torch.parallel.multihost import global_mesh
 
         t0 = time.time()
         self.device = resolve_device(device)
@@ -165,13 +168,18 @@ class MatTrainRunner:
             device=self.device,
         )
         if self.exp.continued:
+            # rank 0 wrote the checkpoint: it reads it and hands it on
             restored = ckpt.restore_checkpoint(
                 self.exp.checkpoints_dir,
                 {"albedo": full.albedo, "roughness": full.roughness},
-            )
-            if restored is not None:
-                full.albedo = restored["albedo"].to(self.device)
-                full.roughness = restored["roughness"].to(self.device)
+            ) if self.exp.is_writer else None
+            if agreed(restored is not None):
+                if restored is not None:
+                    full.albedo = restored["albedo"].to(self.device)
+                    full.roughness = restored["roughness"].to(self.device)
+                world = global_mesh(self.device)
+                replicated(world, full.albedo)
+                replicated(world, full.roughness)
         self.params = self._local_params(full)
 
         # per-view G-buffer/LOD cache budget: ~12 fp32 per pixel, so
