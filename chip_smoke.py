@@ -195,12 +195,35 @@ Phases (any failure exits non-zero; nothing is caught):
      GT sharded against one rank's (rel 1e-6), the networks bit-equal
      across ranks, per_ray_prim on each rank;
  48. dryrun: parallel.dryrun.dryrun_multichip(2, "cuda").
+ The last unported modules (on the apartment):
+ 49. wedged (after 3): ops/pallas_culled.py::cast_ray_fans_wedged (octant
+     sort, 4 wedges, one exit group a 32-row block, occluders) on one
+     bake batch's unsorted fans (1024 texels x 2048 spp), with uv output
+     (B1 shared_uv) and prim output (shared_prim): its hits against
+     cast_fans_culled on the bake's own rows, B1 against its plain
+     version on the wedged trace's rows;
+ 50. tiled (after 28): ops/tiled_raycast.py (plain PyTorch) on the bench
+     view's G-buffer (98,304 rays) and one bake batch (2,097,152 rays):
+     required_leaf_budget, cast_rays_tiled at it (overflow share) and
+     cast_rays_exact at half of it (re-traced rays), ms beside
+     cast_rays_soa's, against cast_rays_soa and B1 by [bvh]'s hit rule,
+     the card against the CPU on the first tiles' rays, launches and idle
+     share of each cast;
+ 51. azimuth-bake (after 9): the IrrT runner's 1024^2 x 2048-spp bake with
+     chunk_mode "octant" (equal to [slice]'s raw texture) and "azimuth"
+     (the u2-sorted Hammersley table): Mrays/s of both, the azimuth
+     texels against the octant ones by the bake rule, B1 shared_uv on one
+     azimuth batch against its plain version;
+ 52. profiling (after 16): profiling.py's trace() around two stage-2 steps
+     timed by StepTimer: the trace under its logdir names B1's kernel;
+     StepTimer.summary().
 Kernel launch counts are zeroed just before each main-path run (5, 6, 9,
 10, 11, 12, 13, each tester of 14, the switch-on steps of 17, each run of
 19, 20, 21, 29, the MatSyn stage of 30, 33, 34, 35, 36, each head of 39,
-each run of 43; in each rank's process, its CLI stage in 44 and 47) and
-read just after; every kernel mode of that run must have run (36 and 41
-run none).
+each run of 43; in each rank's process, its CLI stage in 44 and 47; each
+trace of 49, the casts of 50, each bake of 51, the steps of 52) and read
+just after; every kernel mode of that run must have run (36, 41 and 50
+run none, and 50 fails if B1 ran).
 Then a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}`
 line.  Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
@@ -367,24 +390,30 @@ def bake_texels(syn, n, res=1024):
     return geom.position[vr[sel], vc[sel]], geom.normal[vr[sel], vc[sel]], sel
 
 
-def bake_rows(torch, pts, nrm, ids, seed, dev):
+def bake_rows(torch, pts, nrm, ids, seed, dev, chunk_mode="octant"):
     """A bake batch's wedge rows (origins, directions) exactly as the baker
-    builds them."""
+    builds them in its chunk_mode ("octant": sorted by octant; "azimuth":
+    drawn from the u2-sorted Hammersley table)."""
     from texir_code_tpu_torch.ops.pallas_culled import (
         sort_dirs_octant,
         tile_rows,
         wedge_rows,
     )
-    from texir_code_tpu_torch.ops.sampling import generate_dir_soa
+    from texir_code_tpu_torch.ops.sampling import (
+        generate_dir_soa,
+        hammersley_azimuth_sorted,
+    )
 
     p = torch.from_numpy(pts).to(dev)
     n = torch.from_numpy(nrm).to(dev)
     nrm_s = tuple(n[:, k] for k in range(3))
+    azimuth = chunk_mode == "azimuth"
     dirs = generate_dir_soa(
         nrm_s, SPP, mode="uniform", row_ids=torch.from_numpy(ids).to(dev),
-        seed=seed,
+        seed=seed, base=hammersley_azimuth_sorted(SPP, dev) if azimuth
+        else None,
     )
-    ds = sort_dirs_octant(dirs)
+    ds = dirs if azimuth else sort_dirs_octant(dirs)
     rows_d = tuple(wedge_rows(a, WEDGES).contiguous() for a in ds)
     rows_o = tuple(
         tile_rows(p[:, k] + 1e-2 * n[:, k], WEDGES) for k in range(3)
@@ -859,24 +888,35 @@ def phase_reference(torch, dev, clusters, occ, syn):
         raise SystemExit("bake_batch on the card disagrees with the CPU")
 
 
+def _raw_events(prof):
+    """A profile's events as torch.profiler recorded them (kineto), the
+    ones key_averages() sums: read without building its event tree, which
+    costs about a third of a millisecond an event (tens of seconds for a
+    profile of 100,000 launches)."""
+    return prof.profiler.kineto_results.events()
+
+
 def profile_kernels(prof):
     """(kernel device ms by name, kernel launches) from a profile: device
     events only, without the device spans of record_function ranges (the
     optimizer's "Optimizer.step#..." range spans kernels counted on their
     own)."""
     kern, launches = {}, 0
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+    for e in _raw_events(prof):
+        if not str(e.device_type()).endswith("CUDA"):
             continue
-        if getattr(e, "is_user_annotation", False) or e.key.startswith(
-                "Optimizer."):
+        if e.is_user_annotation() or e.name().startswith("Optimizer."):
             continue
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = getattr(e, "cuda_time_total", 0)
-        kern[e.key] = kern.get(e.key, 0.0) + us / 1e3
-        launches += e.count
+        kern[e.name()] = kern.get(e.name(), 0.0) + e.duration_ns() / 1e6
+        launches += 1
     return kern, launches
+
+
+def profile_cpu_ms(prof, name):
+    """The host ms a profile spent in the CPU op `name`."""
+    return sum(e.duration_ns() / 1e6 for e in _raw_events(prof)
+               if e.name() == name
+               and not str(e.device_type()).endswith("CUDA"))
 
 
 def profile_once(torch, tag, label, fn, top=6):
@@ -1960,8 +2000,7 @@ def phase_building_profile(torch, dev, b, path_mesh, tmp):
         kern, launches = profile_kernels(prof)
         busy = sum(kern.values())
         walk = sum(v for k, v in kern.items() if "culled_walk" in k)
-        sync = sum(e.cpu_time_total / 1e3 for e in prof.key_averages()
-                   if e.key == "aten::_local_scalar_dense")
+        sync = profile_cpu_ms(prof, "aten::_local_scalar_dense")
         log(f"[building-profile] {label}: wall {wall_ms:.2f} ms "
             f"(unprofiled); {launches} kernel launches, {busy:.2f} ms on "
             f"the card (culled_walk {walk:.2f} ms); idle share "
@@ -2782,6 +2821,368 @@ def phase_bvh(torch, dev, syn, clusters):
     if max(errs) > 1e-6:
         raise SystemExit("[bvh] the card's t/u/v differ from the CPU's")
     return dict(ms=ms, launches=launches, **stats)
+
+
+def phase_wedged(torch, dev, clusters, occ, syn):
+    """ops/pallas_culled.py::cast_ray_fans_wedged (the one-call fan trace:
+    octant sort, wedges, the walk, fans put back) on one bake batch's
+    unsorted fans (1024 texels x 2048 spp, wedges 4, fb 32, occluders),
+    with uv and with prim output: B1's launches in each run (shared_uv,
+    shared_prim), its sorted directions against the bake's rows, its hits
+    against cast_fans_culled on the rows the bake builds (exit groups of
+    16 rows there, of one 32-row block here: other lists, the same
+    closest hits), and B1 against its plain version on the wedged trace's
+    own rows."""
+    from texir_code_tpu_torch.ops.pallas_culled import (
+        cast_fans_culled,
+        cast_ray_fans_wedged,
+        culled_walk_cuda,
+        unwedge_rows,
+        walk_args,
+        wedge_rows,
+    )
+    from texir_code_tpu_torch.ops.sampling import generate_dir_soa
+
+    pts, nrm, ids = bake_texels(syn, 1024)
+    p = torch.from_numpy(pts).to(dev)
+    n = torch.from_numpy(nrm).to(dev)
+    dirs = generate_dir_soa(
+        tuple(n[:, k] for k in range(3)), SPP, mode="uniform",
+        row_ids=torch.from_numpy(ids).to(dev), seed=777)
+    origins = tuple(p[:, k] + 1e-2 * n[:, k] for k in range(3))
+    rows_o, rows_d = bake_rows(torch, pts, nrm, ids, 777, dev)
+    rays = dirs[0].numel()
+    out = {}
+    for emit_uv in (True, False):
+        mode = "shared_uv" if emit_uv else "shared_prim"
+        culled_walk_cuda.launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        hit, ds = cast_ray_fans_wedged(
+            clusters, origins, dirs, wedges=WEDGES, fan_block=FAN_BLOCK,
+            emit_uv=emit_uv, occluders=occ)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+        launches = dict(culled_walk_cuda.launches)
+        _need_modes("wedged", launches, [mode])
+        if not all(torch.equal(wedge_rows(a, WEDGES), b)
+                   for a, b in zip(ds, rows_d)):
+            raise SystemExit("[wedged] the sorted directions are not the "
+                             "bake's rows")
+        ref = cast_fans_culled(clusters, rows_o, rows_d, fan_block=FAN_BLOCK,
+                               exit_rows=EXIT_ROWS, emit_uv=emit_uv,
+                               occluders=occ)
+        ref = tuple(unwedge_rows(a, WEDGES) for a in
+                    (ref.t, ref.prim, ref.u, ref.v))
+        err, ties, t_bad, prim_bad = compare_hits(
+            (hit.t, hit.prim, hit.u, hit.v), ref, not emit_uv)
+        log(f"[wedged] cast_ray_fans_wedged {mode}: {rays} rays in "
+            f"{wall_ms:.2f} ms wall (first call); culled_walk launches "
+            f"{launches}; vs cast_fans_culled on the bake's rows (er "
+            f"{EXIT_ROWS}): max|d| {err:.3g}, t mismatches {t_bad}, prim "
+            f"mismatches {prim_bad}, ties {ties}")
+        if t_bad or ties > 1e-4 * rays:
+            raise SystemExit("[wedged] the wedged trace disagrees with "
+                             "cast_fans_culled on the bake's rows")
+        row, _ = check_walk(torch, "the wedged trace's rows", walk_args(
+            clusters, rows_o, rows_d, fan_block=FAN_BLOCK, emit_uv=emit_uv,
+            occluders=occ), plain_reps=0, name=f"culled_walk[{mode}]@wedged")
+        row["launches"] = launches[mode]
+        out[mode + "@wedged"] = row
+    return out
+
+
+def phase_azimuth_bake(torch, dev, clusters, occ, syn, path_mesh, tmp):
+    """The apartment's 1024^2 x 2048-spp bake through the IrrT runner's
+    baker (the [slice] settings and seed), once with chunk_mode "octant"
+    and once "azimuth" (the fans drawn from the u2-sorted Hammersley
+    table, wedged unsorted): Mrays/s of both; the octant bake must be
+    [slice]'s (its RGBE file, value for value); the azimuth bake is held
+    to the octant one by PERF.md section 2's bake rule on the float
+    texels (each texel traces the same direction set, so only the order
+    of the sums and the choice on exact-t ties move a texel); then B1
+    shared_uv on one azimuth batch's rows against its plain version."""
+    from texir_code_tpu_torch.config import _parse_value, parse_file
+    from texir_code_tpu_torch.data import hdrio
+    from texir_code_tpu_torch.ops.pallas_culled import (
+        culled_walk_cuda,
+        walk_args,
+    )
+    from texir_code_tpu_torch.train.exp import seed_everything
+    from texir_code_tpu_torch.train.irt import IrrTextureRunner
+
+    conf = parse_file(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "configs", "irt_synthetic.conf"))
+    conf.put("train.path_mesh_open3d", path_mesh)
+    conf.put("train.sample_light", _parse_value(f"[{SPP}, 16]"))
+    runner = IrrTextureRunner(conf, exps_root=os.path.join(tmp, "exps_az"),
+                              texture_res=IRT_RES, denoise=False)
+    baker, geom = runner.baker, runner._geom
+    rays = int(geom.valid.sum()) * SPP
+    raws, secs, launches = {}, {}, {}
+    for mode in ("octant", "azimuth"):
+        baker.chunk_mode = mode
+        culled_walk_cuda.launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        raws[mode] = baker.bake(geom, seed_everything(666))
+        torch.cuda.synchronize()
+        secs[mode] = time.time() - t0
+        launches[mode] = dict(culled_walk_cuda.launches)
+        _need_modes("azimuth-bake", launches[mode], ["shared_uv"])
+    log(f"[azimuth-bake] {rays} rays: octant {secs['octant']:.2f} s = "
+        f"{rays / secs['octant'] / 1e6:.2f} Mrays/s, azimuth "
+        f"{secs['azimuth']:.2f} s = {rays / secs['azimuth'] / 1e6:.2f} "
+        f"Mrays/s (bake only, host clock to a device sync); culled_walk "
+        f"launches {launches}")
+    sliced = hdrio.read_hdr(path_mesh.replace("out1.obj", "0_irr_texture.hdr"),
+                            flip=True)
+    if not np.array_equal(_raw_quantized(raws["octant"]), sliced):
+        raise SystemExit("[azimuth-bake] the octant bake is not [slice]'s")
+    a, b, valid = raws["azimuth"], raws["octant"], geom.valid
+    rel = (np.abs(a - b) / np.maximum(np.abs(b), 1e-3))[valid]
+    log(f"[azimuth-bake] the octant bake equals [slice]'s 0_irr_texture.hdr; "
+        f"azimuth vs octant: texels above 1e-6 rel "
+        f"{int((rel > 1e-6).any(-1).sum())}, above 1e-5 "
+        f"{int((rel > 1e-5).any(-1).sum())}")
+    bake_rule("[azimuth-bake] azimuth vs octant float bakes", a, b, valid)
+    pts, nrm, ids = bake_texels(syn, 1024)
+    rows_o, rows_d = bake_rows(torch, pts, nrm, ids, 777, dev, "azimuth")
+    row, _ = check_walk(torch, "azimuth bake rows", walk_args(
+        clusters, rows_o, rows_d, fan_block=FAN_BLOCK, exit_rows=EXIT_ROWS,
+        emit_uv=True, occluders=occ), plain_reps=0,
+        name="culled_walk[shared_uv]@azimuth")
+    row["launches"] = launches["azimuth"]["shared_uv"]
+    return row
+
+
+TILE_RAYS = 1024  # the tiled caster's tile (JAX's default)
+
+
+def edge_rule(tag, label, a, b):
+    """[bvh]'s hit rule between two closest-hit sets of the same rays (a
+    traced by Möller–Trumbore, the traversal's role in [bvh]; b the other
+    trace): prim equal and t within 1e-4 relative, except on rays whose
+    nearer hit lies within 1e-5 (barycentric) of a triangle edge, which
+    may take either triangle at the same t (a tie) or pass through the
+    edge in one trace (a leak: that trace misses, or hits a surface
+    behind, where [bvh]'s closed walls leave it nothing); ties and leaks
+    on at most [bvh]'s share of the rays (BVH_EDGE_RAYS_MAX of 131,072)."""
+    ta, pa = a.t.reshape(-1).cpu().numpy(), a.prim.reshape(-1).cpu().numpy()
+    tb, pb = b.t.reshape(-1).cpu().numpy(), b.prim.reshape(-1).cpu().numpy()
+    n = ta.size
+
+    def edge(u, v):  # barycentric distance of a hit to its triangle's edges
+        u, v = u.reshape(-1).cpu().numpy(), v.reshape(-1).cpu().numpy()
+        return np.minimum(np.minimum(u, v), 1.0 - u - v)
+
+    both = np.isfinite(ta) & np.isfinite(tb)
+    rel = np.zeros(n)
+    rel[both] = np.abs(ta[both] - tb[both]) / tb[both]
+    far = both & (pa != pb) & (rel > 1e-4)
+    leak = (np.isfinite(ta) != np.isfinite(tb)) | far
+    tie = both & (pa != pb) & (rel <= 1e-4)
+    a_nearer = np.where(np.isfinite(ta), ta, np.inf) <= np.where(
+        np.isfinite(tb), tb, np.inf)
+    near = np.where(a_nearer, edge(a.u, a.v), edge(b.u, b.v))
+    same = both & (pa == pb)
+    cap = int(n * BVH_EDGE_RAYS_MAX / (PANO[0] * PANO[1]))
+    log(f"[{tag}]   {label}: prim differs on {int((pa != pb).sum())} of {n} "
+        f"rays: {int(tie.sum())} exact-t ties, {int(leak.sum())} leaks "
+        f"({int((leak & a_nearer).sum())} by the second, {int(far.sum())} "
+        f"of all to a surface behind; at most {cap} ties and leaks), every "
+        f"tie or leak within {float(near[leak | tie].max(initial=0.0)):.3g} "
+        f"of an edge; t max rel diff {float(rel[same].max(initial=0.0)):.3g}"
+        f" where prim agrees")
+    if (near[leak | tie] > 1e-5).any():
+        raise SystemExit(f"[{tag}] {label}: the hits differ off the "
+                         "triangles' edges")
+    if int((leak | tie).sum()) > cap:
+        raise SystemExit(f"[{tag}] {label}: more ties or leaks than [bvh]'s "
+                         "rule allows")
+    if float(rel[same].max(initial=0.0)) > 1e-4:
+        raise SystemExit(f"[{tag}] {label}: t differs beyond 1e-4 relative")
+
+
+def phase_tiled(torch, dev, clusters, occ, syn):
+    """ops/tiled_raycast.py (plain PyTorch, no hand-written kernel) on two
+    ray sets of the apartment: the bench view's G-buffer (98,304 primary
+    rays from camera 0, t_min 1e-6) and one bake batch's wedge rows
+    (1024 texels x 2048 spp = 2,097,152 rays): required_leaf_budget, then
+    cast_rays_tiled at the budget (its overflow share) and cast_rays_exact
+    at half of it (the rays it re-traces with the BVH); CUDA-event ms of
+    each beside cast_rays_soa's; both against cast_rays_soa and B1
+    shared_prim (as the Mat G-buffer traces those rays, lb 8, and as the
+    bake does, lb 4; occluders) by [bvh]'s hit rule (edge_rule); the
+    card against the CPU on the first tiles' rays (prim equal, t/u/v
+    within 1e-6 relative); launches and idle share of each tiled cast
+    under torch.profiler."""
+    from texir_code_tpu_torch.geometry.bvh import build_bvh
+    from texir_code_tpu_torch.ops.fan_raycast import FanScene
+    from texir_code_tpu_torch.ops.gbuffer import ray_dirs_from_mvp
+    from texir_code_tpu_torch.ops.pallas_culled import (
+        ClusterScene,
+        cast_fans_culled,
+        culled_walk_cuda,
+    )
+    from texir_code_tpu_torch.ops.raycast import DeviceBVH, cast_rays_soa
+    from texir_code_tpu_torch.ops.tiled_raycast import (
+        TiledScene,
+        cast_rays_exact,
+        cast_rays_tiled,
+        required_leaf_budget,
+    )
+
+    fb = build_bvh(syn.mesh.vertices, syn.mesh.faces)
+    scene, bvh = TiledScene.from_flat(fb, dev), DeviceBVH.from_flat(fb, dev)
+    scene_cpu = TiledScene.from_flat(fb, "cpu")
+    bvh_cpu = DeviceBVH.from_flat(fb, "cpu")
+    # the G-buffer's walk at the Mat model's cluster size (lb 8)
+    gbuf_clusters = ClusterScene.from_fan(
+        FanScene.from_flat(fb, triangle_uvs=syn.mesh.triangle_uvs()),
+        lb=MAT_LB, dense=True, device=dev)
+    pos, mvp = bench_camera(syn)
+    cam = torch.as_tensor(pos, device=dev)
+    flat = ray_dirs_from_mvp(mvp.to(dev), PANO[1] // 4).reshape(-1, 3)
+    n = flat.shape[0]
+    g_d = tuple(flat[:, k].contiguous() for k in range(3))
+    g_o = tuple(cam[k].expand(n).contiguous() for k in range(3))
+    rows = n // 2048
+    g_rows = (tuple(cam[k].expand(rows).contiguous() for k in range(3)),
+              tuple(a.reshape(rows, 2048) for a in g_d))
+    walk_g = cast_fans_culled(gbuf_clusters, *g_rows, t_min=1e-6,
+                              fan_block=8, emit_prim=True, occluders=occ)
+    # the same rows at the bake's cluster size (lb 4), for the occluder
+    # finding below
+    walk_g4 = cast_fans_culled(clusters, *g_rows, t_min=1e-6, fan_block=8,
+                               emit_prim=True, occluders=occ)
+    pts, nrm, ids = bake_texels(syn, 1024)
+    rows_o, rows_d = bake_rows(torch, pts, nrm, ids, 777, dev)
+    r = rows_d[0].shape[1]
+    b_o = tuple(a[:, None].expand(-1, r).reshape(-1) for a in rows_o)
+    b_d = tuple(a.reshape(-1) for a in rows_d)
+    walk_b = cast_fans_culled(clusters, rows_o, rows_d, fan_block=FAN_BLOCK,
+                              exit_rows=EXIT_ROWS, emit_prim=True,
+                              occluders=occ)
+    sets = (("the bench view's G-buffer", g_o, g_d, 1e-6, walk_g, 8),
+            ("one bake batch's wedge rows", b_o, b_d, 0.0, walk_b, 2))
+    for label, o, d, t_min, walk, cpu_tiles in sets:
+        n = o[0].numel()
+        t0 = time.time()
+        budget = required_leaf_budget(scene, o, d, tile_size=TILE_RAYS)
+        budget_s = time.time() - t0
+        culled_walk_cuda.launches.clear()
+        (hit, over), tiled_ms = timed_once(torch, lambda: cast_rays_tiled(
+            scene, o, d, t_min=t_min, tile_size=TILE_RAYS, max_leaves=budget,
+            return_overflow=True))
+        stats = dict(cast_rays_tiled.stats)
+        exact, exact_ms = timed_once(torch, lambda: cast_rays_exact(
+            scene, bvh, o, d, t_min=t_min, tile_size=TILE_RAYS,
+            max_leaves=budget // 2))
+        retraced = cast_rays_exact.stats["retraced"]
+        if culled_walk_cuda.launches:
+            raise SystemExit("[tiled] the tiled caster launched B1")
+        trav, bvh_ms = timed_once(torch, lambda: cast_rays_soa(
+            bvh, o, d, t_min=t_min))
+        over_share = float(over.float().mean())
+        log(f"[tiled] {label}: {n} rays, {stats['tiles']} tiles of "
+            f"{TILE_RAYS}, {scene.num_leaves} leaves; required_leaf_budget "
+            f"{budget} ({budget_s:.2f} s on the host); cast_rays_tiled at "
+            f"the budget {tiled_ms:.2f} ms ({stats['steps']} leaf steps), "
+            f"overflow share {over_share:.4g}; cast_rays_exact at "
+            f"{budget // 2} {exact_ms:.2f} ms, {retraced} rays re-traced "
+            f"({retraced / n:.4g}); cast_rays_soa {bvh_ms:.2f} ms (CUDA "
+            f"events, one call each)")
+        if over_share:
+            log(f"[tiled]   the budget misses {over_share:.4g} of the "
+                f"cast's rays (its host sort is numpy's unstable argsort): "
+                f"those rays are held through cast_rays_exact only")
+        else:
+            edge_rule("tiled", "tiled vs cast_rays_soa", hit, trav)
+            edge_rule("tiled", "tiled vs B1 shared_prim", hit, walk)
+        edge_rule("tiled", "exact vs cast_rays_soa", exact, trav)
+        edge_rule("tiled", "exact vs B1 shared_prim", exact, walk)
+        if walk is walk_g:
+            # a property of the reference: its occluder culling (ported
+            # as it is) drops a cluster some G-buffer rows see at lb 4
+            t4 = walk_g4.t.reshape(-1)
+            u, v = exact.u, exact.v
+            off = (torch.isfinite(exact.t) & ~torch.isfinite(t4)
+                   & (torch.minimum(torch.minimum(u, v), 1 - u - v) > 1e-5))
+            log(f"[tiled]   B1 shared_prim at lb 4 with occluders on the "
+                f"same rows: {int(off.sum())} rays missed off any edge "
+                f"(hit by the exact trace; lb {MAT_LB}, the G-buffer's: "
+                f"none)")
+        m = cpu_tiles * TILE_RAYS
+        sub = [tuple(a[:m].contiguous() for a in x) for x in (o, d)]
+        card = cast_rays_exact(scene, bvh, *sub, t_min=t_min,
+                               tile_size=TILE_RAYS, max_leaves=budget // 2)
+        ref = cast_rays_exact(scene_cpu, bvh_cpu,
+                              *[tuple(a.cpu() for a in x) for x in sub],
+                              t_min=t_min, tile_size=TILE_RAYS,
+                              max_leaves=budget // 2)
+        if not torch.equal(card.prim.cpu(), ref.prim):
+            raise SystemExit("[tiled] the card's prims differ from the CPU's")
+        errs = []
+        for f in ("t", "u", "v"):
+            x, y = getattr(card, f).cpu().numpy(), getattr(ref, f).numpy()
+            fin = np.isfinite(y)
+            if not np.array_equal(np.isfinite(x), fin):
+                raise SystemExit(f"[tiled] the card's {f} misses differ")
+            e = np.abs(x[fin] - y[fin]) / np.maximum(np.abs(y[fin]), 1.0)
+            errs.append(float(e.max()) if e.size else 0.0)
+        log(f"[tiled]   card vs CPU (cast_rays_exact) on the first {m} "
+            f"rays: prim equal, t/u/v max rel diff {max(errs):.3g}")
+        if max(errs) > 1e-6:
+            raise SystemExit("[tiled] the card's t/u/v differ from the CPU's")
+        profile_once(torch, "tiled", f"cast_rays_tiled of {label} at the "
+                     f"budget", lambda: cast_rays_tiled(
+                         scene, o, d, t_min=t_min, tile_size=TILE_RAYS,
+                         max_leaves=budget), top=4)
+
+
+def phase_profiling(torch, path_mesh, tmp):
+    """profiling.py on the card: trace() around two Mat stage-2 steps of
+    the apartment's runner (camera 0's cached view, the bench width), each
+    timed by StepTimer and ended in a device sync: the trace written under
+    its logdir must name B1's kernel (the steps' specular walk,
+    per_ray_uv); prints StepTimer.summary()."""
+    import glob
+
+    from texir_code_tpu_torch.ops.pallas_culled import culled_walk_cuda
+    from texir_code_tpu_torch.profiling import StepTimer, trace
+
+    runner = mat_runner(torch, path_mesh, tmp, "exps_trace")
+    runner.build_masks()
+    views, n_rooms = runner._stack_epoch_data([0])
+    opt, sched = mat_adam(runner)
+    runner._step(2, views[0], n_rooms, 0, opt, sched)
+    torch.cuda.synchronize()
+    timer = StepTimer()
+    logdir = os.path.join(tmp, "trace")
+    pixels = 6 * (PANO[1] // 4) ** 2
+    culled_walk_cuda.launches.clear()
+    with trace(logdir) as prof:
+        for it in (1, 2):
+            with timer.measure(pixels=pixels):
+                runner._step(2, views[0], n_rooms, it, opt, sched)
+                torch.cuda.synchronize()
+    launches = dict(culled_walk_cuda.launches)
+    _need_modes("profiling", launches, ["per_ray_uv"])
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise SystemExit(f"[profiling] trace() wrote {files}")
+    with open(files[0]) as f:
+        named = "culled_walk" in f.read()
+    kern, n_launch = profile_kernels(prof)
+    walk = sum(v for k, v in kern.items() if "culled_walk" in k)
+    log(f"[profiling] trace() of two stage-2 steps: {files[0]} "
+        f"({os.path.getsize(files[0])} bytes), B1 named: {named}; "
+        f"{n_launch} kernel launches, {sum(kern.values()):.2f} ms on the "
+        f"card, culled_walk {walk:.3f} ms; culled_walk launches {launches}")
+    log(f"[profiling] StepTimer.summary(): {json.dumps(timer.summary())}")
+    if not named or walk <= 0:
+        raise SystemExit("[profiling] the trace does not name B1's kernel")
 
 
 def phase_syn_export(torch, syn, tmp):
@@ -4282,10 +4683,20 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.time()
+    last = [t_start]
+
+    def mark(label):  # a phase's seconds, for the time budget
+        now = time.time()
+        log(f"[time] {label} {now - last[0]:.1f} s (at {now - t_start:.1f} s)")
+        last[0] = now
+
     name, count, _ = phase_device(torch)
     phase_build()
     syn, clusters, occ = bench_scene(dev)
     rows = phase_kernels(torch, dev, clusters, occ, syn)
+    mark("[build] and [kernels]")
+    rows.update(phase_wedged(torch, dev, clusters, occ, syn))
+    mark("[wedged]")
     rows.update(phase_mat_kernels(torch, dev, syn))
     fan_rows = phase_fan_kernels(torch, dev, syn, clusters)
     rows["shared_uv_visits"] = phase_visits(torch, dev, clusters, occ, syn)
@@ -4293,7 +4704,9 @@ def main():
     b = building_scene(torch, dev)
     rows.update(phase_building_kernels(torch, dev, b))
     phase_bvh(torch, dev, syn, clusters)
-    log(f"[time] kernels checked at {time.time() - t_start:.1f} s")
+    mark("[mat-kernels] to [bvh]")
+    phase_tiled(torch, dev, clusters, occ, syn)
+    mark("[tiled]")
     with tempfile.TemporaryDirectory() as tmp:
         path_mesh = phase_export(torch, syn, tmp)
         rows["shared_uv"]["launches"] = phase_slice(torch, syn, path_mesh,
@@ -4305,6 +4718,10 @@ def main():
             with open(path_mesh.replace("out1.obj", tex), "rb") as src, \
                     open(slice_ref[tex], "wb") as dst:
                 dst.write(src.read())
+        mark("[export] and [slice]")
+        rows["shared_uv@azimuth"] = phase_azimuth_bake(
+            torch, dev, clusters, occ, syn, path_mesh, tmp)
+        mark("[azimuth-bake]")
         launches, _ = phase_mat(torch, path_mesh, tmp)
         for mode in ("shared_prim", "per_ray_uv"):
             rows[mode]["launches"] = launches[mode]
@@ -4315,36 +4732,45 @@ def main():
         for mode in FAN_MODES:
             fan_rows[mode]["launches"] = fan_launches[mode]
         rows["per_ray_prim"]["launches"] = fan_launches["culled:per_ray_prim"]
+        mark("[mat] to [fan-mat]")
         phase_error(torch, path_mesh, tmp, os.path.join(tmp, "exps"))
+        mark("[error]")
         phase_testers(torch, syn, path_mesh, os.path.join(tmp, "exps"))
+        mark("[testers]")
         phase_pathtrace(torch, path_mesh, os.path.join(tmp, "exps"))
         phase_pathtrace_reference(torch, dev, path_mesh,
                                   os.path.join(tmp, "exps"))
         phase_tools(torch, path_mesh, os.path.join(tmp, "exps"), tmp)
-        log(f"[time] path tracer and tools done at "
-            f"{time.time() - t_start:.1f} s")
+        mark("[pathtrace] to [tools]")
         phase_profile(torch, dev, clusters, occ, syn)
         phase_mat_profile(torch, path_mesh, tmp)
+        mark("[profile] and [mat-profile]")
+        phase_profiling(torch, path_mesh, tmp)
+        mark("[profiling]")
         s_rows["sorted"]["launches"] = phase_mat_segsum(torch, dev, path_mesh,
                                                         tmp, syn)
+        mark("[mat-segsum]")
         syn_path, _, _ = phase_syn_export(torch, syn, tmp)
         phase_matsyn(torch, syn_path, tmp)
+        mark("[syn-export] and [matsyn]")
         head_rows = phase_heads(torch, syn_path, tmp)
         phase_heads_reference(torch, syn_path, tmp)
-        log(f"[time] heads done at {time.time() - t_start:.1f} s")
+        mark("[heads] and [heads-reference]")
         phase_alt_models(torch, syn)
+        mark("[alt-models]")
         phase_alt_models_reference(torch, syn)
-        log(f"[time] alternative models done at {time.time() - t_start:.1f} s")
+        mark("[alt-models-reference]")
         irrf_rows = phase_irrf_kernels(torch, path_mesh, tmp)
         phase_irrf_reference(torch, path_mesh, tmp)
+        mark("[irrf-kernels] and [irrf-reference]")
         (irrf_rows["irrf-step"]["launches"],
          irrf_rows["irrf-val"]["launches"]) = phase_fields(torch, path_mesh,
                                                            tmp)
-        log(f"[time] field stages done at {time.time() - t_start:.1f} s")
-        t_multi = time.time()
+        mark("[irrf], [irf] and [pil]")
+        t_phase = time.time()
         phase_spmd_bake(torch, path_mesh, tmp, slice_ref,
                         rows["shared_uv"]["launches"])
-        log(f"[time] [spmd-bake] {time.time() - t_multi:.1f} s")
+        log(f"[time] [spmd-bake] {time.time() - t_phase:.1f} s")
         t_phase = time.time()
         phase_spmd_mat(torch, path_mesh, tmp)
         log(f"[time] [spmd-mat] and [atlas-tp] {time.time() - t_phase:.1f} s")
@@ -4353,27 +4779,30 @@ def main():
         log(f"[time] [spmd-irrf] {time.time() - t_phase:.1f} s")
         t_phase = time.time()
         phase_dryrun(torch)
-        log(f"[time] [dryrun] {time.time() - t_phase:.1f} s; the multi-rank "
-            f"phases {time.time() - t_multi:.1f} s")
-        log(f"[time] apartment path done at {time.time() - t_start:.1f} s")
+        log(f"[time] [dryrun] {time.time() - t_phase:.1f} s")
+        mark("the multi-rank phases")
         bpath = phase_building_export(torch, b["syn"], tmp)
         launches = phase_building_proxy(torch, b["syn"], bpath, tmp)
+        mark("[building-export] and [building-proxy]")
         rows["shared_uv_seeded"]["launches"] = launches["shared_uv_seeded"]
         launches, _ = phase_building_slice(torch, b["syn"], bpath, tmp)
+        mark("[building-slice]")
         for mode in ("shared_uv", "per_ray_uv"):
             rows[mode + "@building"]["launches"] = launches[mode]
         launches = phase_building_mat(torch, bpath, tmp)
+        mark("[building-mat]")
         for mode in ("shared_prim_seeded", "per_ray_uv_seeded"):
             rows[mode]["launches"] = launches[mode]
         phase_building_profile(torch, dev, b, bpath, tmp)
-        log(f"[time] building path done at {time.time() - t_start:.1f} s")
+        mark("[building-profile]")
         rows.update(phase_building_matsyn(torch, b["syn"], tmp))
-        log(f"[time] building MatSyn done at {time.time() - t_start:.1f} s")
+        mark("[building-matsyn]")
     phase_reference(torch, dev, clusters, occ, syn)
     phase_mat_reference(torch, dev, syn)
     phase_error_reference(torch, dev, syn)
     phase_relit_reference(torch, dev, syn)
     phase_building_reference(torch, dev, b)
+    mark("the card-vs-CPU references")
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [rows[k] for k in (
         "shared_uv", "shared_prim", "per_ray_uv", "shared_uv@building",
@@ -4384,7 +4813,9 @@ def main():
         + [irrf_rows["irrf-step"], irrf_rows["irrf-val"]]
         + [head_rows[m] for m in HEAD_MODES]
         + [rows["per_ray_prim@building-irrf"],
-           rows["per_ray_uv@building-matsyn"]]}))
+           rows["per_ray_uv@building-matsyn"]]
+        + [rows[k] for k in ("shared_uv@azimuth", "shared_uv@wedged",
+                             "shared_prim@wedged")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -69,7 +69,8 @@ def setup():
     rows_d = tuple(np.asarray(J.wedge_rows(a, WEDGES)) for a in ds)
     rows_o = tuple(np.tile(pts[:, k], WEDGES) for k in range(3))
     return dict(syn=syn, jc=jc, jo=jo, tc=tc, to=to, rows_o=rows_o,
-                rows_d=rows_d, jax_hits={})
+                rows_d=rows_d, pts=pts, dirs=d,
+                dirs_sorted=[np.asarray(a) for a in ds], jax_hits={})
 
 
 def _j(x):
@@ -146,6 +147,29 @@ def test_walk_matches_jax_interpret(setup, emit_uv):
     _assert_hits_close(ref, got, 1e-5, emit_prim=not emit_uv)
     if emit_uv:
         assert (got[1] == -1).all()  # emit_prim defaults to not emit_uv
+
+
+@pytest.mark.parametrize("emit_uv", [True, False])
+def test_cast_ray_fans_wedged_matches_jax(setup, emit_uv):
+    """The one-call fan trace (octant sort, wedges, the walk, un-wedge) on
+    the fixture's unsorted fans: its sorted directions bit-equal to JAX's
+    sort_dirs_octant, its hits those of the JAX interpret-mode walk of the
+    same wedge rows (the cached hits: one exit group a 16-row block, as
+    fan_block 16 gives) put back in fan order."""
+    s = setup
+    hit, ds = T.cast_ray_fans_wedged(
+        s["tc"], tuple(torch.from_numpy(s["pts"][:, k]) for k in range(3)),
+        tuple(torch.from_numpy(np.ascontiguousarray(s["dirs"][..., k]))
+              for k in range(3)),
+        wedges=WEDGES, fan_block=EXIT_ROWS, emit_uv=emit_uv,
+        occluders=s["to"])
+    for a, b in zip(s["dirs_sorted"], ds):
+        np.testing.assert_array_equal(a, b.numpy())
+    ref = [T.unwedge_rows(torch.from_numpy(a), WEDGES).numpy()
+           for a in jax_hit(s, emit_uv)]
+    got = [a.numpy() for a in (hit.t, hit.prim, hit.u, hit.v)]
+    assert got[0].shape == (TEXELS, SPP)
+    _assert_hits_close(ref, got, 1e-5, emit_prim=not emit_uv)
 
 
 def test_walk_matches_brute_force(setup):

@@ -63,7 +63,8 @@ def test_scan_covers_the_port():
                 ("scripts", "building_quality.py"),
                 ("parallel", "multihost.py"), ("parallel", "mesh.py"),
                 ("parallel", "bake.py"), ("parallel", "atlas_tp.py"),
-                ("parallel", "dryrun.py")):
+                ("parallel", "dryrun.py"), ("ops", "tiled_raycast.py"),
+                ("profiling.py",)):
         assert os.path.join("texir_code_tpu_torch", *mod) in names
     assert len(names) > 20
 

@@ -31,7 +31,10 @@ from texir_code_tpu.ops.fan_raycast import FanScene
 from texir_code_tpu.ops.pallas_culled import ClusterScene
 from texir_code_tpu.ops.postprocess import atrous_denoise as j_atrous
 from texir_code_tpu.ops.postprocess import pad_texture as j_pad
-from texir_code_tpu.ops.sampling import stratified_samples
+from texir_code_tpu.ops.sampling import (
+    hammersley_azimuth_sorted,
+    stratified_samples,
+)
 from texir_code_tpu_torch import cli, convert
 from texir_code_tpu_torch.data import hdrio
 from texir_code_tpu_torch.geometry.bvh import FlatBVH
@@ -79,9 +82,13 @@ def bake_setup(apartment):
     )(jnp.asarray(ids))
     samples = np.array(stratified_samples(
         jax.random.PRNGKey(SEED), TEXELS, SPP, "hammersley", row_keys))
+    # the azimuth chunk mode's draws: the same shifts on the u2-sorted table
+    samples_az = np.array(stratified_samples(
+        jax.random.PRNGKey(SEED), TEXELS, SPP, "hammersley", row_keys,
+        base=hammersley_azimuth_sorted(SPP)))
     return dict(
         bvh=bvh, jc=jc, jo=jo, jt=jt, pts=pts, nrm=nrm, ids=ids,
-        samples=samples,
+        samples=samples, samples_az=samples_az,
         tc=convert.cluster_scene_from_numpy(
             np.asarray(jc.rows3), np.asarray(jc.prims3),
             np.asarray(jc.cluster_lo), np.asarray(jc.cluster_hi),
@@ -121,6 +128,67 @@ def test_bake_batch_matches_jax(bake_setup, supersample):
     assert ref.shape == got.shape == (TEXELS, 3)
     assert ref.mean() > 0.1
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def _port_baker(s, chunk_mode, spp=SPP, cls=TBaker):
+    """The port's baker at the fixture's bake settings (fb 32, er 16,
+    occluders, the 1-fetch atlas)."""
+    tb = cls(s["tt"], spp=spp, texel_batch=TEXELS, cluster_scene=s["tc"],
+             wedges=4)
+    tb.fan_block, tb.exit_rows, tb.occluders = 32, 16, s["to"]
+    tb.chunk_mode = chunk_mode
+    return tb
+
+
+def _batch(s):
+    return (torch.from_numpy(s["pts"]), torch.from_numpy(s["nrm"]),
+            torch.from_numpy(s["ids"]))
+
+
+def test_bake_batch_azimuth_matches_jax(bake_setup):
+    """chunk_mode "azimuth": the fans drawn from the u2-sorted Hammersley
+    table and wedged unsorted; the port fed the JAX baker's own azimuth
+    draws (one interpret-mode compile of the JAX bake)."""
+    s = bake_setup
+    jb = JBaker(s["jt"], spp=SPP, texel_batch=TEXELS, cluster_scene=s["jc"],
+                wedges=4, pallas_interpret=True)
+    jb.fan_block, jb.exit_rows, jb.occluders = 16, 16, s["jo"]
+    jb.chunk_mode = "azimuth"
+    ref = np.asarray(jb.bake_batch(jnp.asarray(s["pts"]),
+                                   jnp.asarray(s["nrm"]),
+                                   jnp.asarray(s["ids"]), jnp.int32(SEED)))
+    got = _port_baker(s, "azimuth").bake_batch(
+        *_batch(s), SEED, samples=torch.from_numpy(s["samples_az"])).numpy()
+    assert ref.shape == got.shape == (TEXELS, 3)
+    assert ref.mean() > 0.1
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_bake_batch_azimuth_equals_octant(bake_setup):
+    """The two chunk modes trace the same direction set of each texel (the
+    same shift on the same Hammersley points, in another order), so the
+    texels agree up to fp32 summation order; the wedge rows differ."""
+    s = bake_setup
+    az = _port_baker(s, "azimuth").bake_batch(*_batch(s), SEED)
+    oc = _port_baker(s, "octant").bake_batch(*_batch(s), SEED)
+    assert float(oc.mean()) > 0.1 and not torch.equal(az, oc)
+    np.testing.assert_allclose(az.numpy(), oc.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_sharded_azimuth_bake_equals_plain(bake_setup, apartment):
+    """ShardedIrradianceBaker honours chunk_mode: over the world's one rank
+    its azimuth bake of a 16² atlas equals the plain baker's bit for bit."""
+    from texir_code_tpu_torch.parallel.bake import ShardedIrradianceBaker
+
+    s = bake_setup
+    geom = t_geometry(apartment.mesh, 16)
+    texs = []
+    for cls in (TBaker, ShardedIrradianceBaker):
+        tb = _port_baker(s, "azimuth", spp=128, cls=cls)
+        assert tb.mesh.size == 1
+        texs.append(tb.bake(geom, seed_everything(3)))
+    assert texs[0][geom.valid].mean() > 0.1
+    np.testing.assert_array_equal(texs[0], texs[1])
 
 
 def test_bake_batch_without_uv_rows_matches_jax(bake_setup):

@@ -499,9 +499,9 @@ def test_one_rank_mesh_collectives_are_identities():
 
 
 @pytest.mark.parametrize("entry", ["rank_device", "make_device_mesh",
-                                   "dryrun_multichip"])
+                                   "dryrun_multichip", "make_atlas_mesh"])
 def test_entry_points_need_a_card_unless_cpu(entry):
-    """The mesh and the dry run default to the card: without one they
+    """The meshes and the dry run default to the card: without one they
     raise instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the entry point would run on it")
@@ -509,9 +509,22 @@ def test_entry_points_need_a_card_unless_cpu(entry):
 
     fn = {"rank_device": TM.rank_device,
           "make_device_mesh": TM.make_device_mesh,
-          "dryrun_multichip": dryrun.dryrun_multichip}[entry]
+          "dryrun_multichip": dryrun.dryrun_multichip,
+          "make_atlas_mesh": TTP.make_atlas_mesh}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fn()
+
+
+def test_make_atlas_mesh_on_the_cpu():
+    """JAX's make_atlas_mesh name over make_device_mesh: one process
+    without a group is a one-rank mesh; a count that is not the world's
+    raises."""
+    mesh = TTP.make_atlas_mesh(device="cpu")
+    assert mesh.size == 1 and mesh.group is None
+    assert mesh.device == torch.device("cpu")
+    assert TTP.make_atlas_mesh(1, device="cpu").size == 1
+    with pytest.raises(ValueError):
+        TTP.make_atlas_mesh(2, device="cpu")
 
 
 def test_parallel_meshes_from_conf_one_rank():

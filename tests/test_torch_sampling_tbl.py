@@ -71,6 +71,23 @@ def test_onb_and_hammersley_match_jax(rng):
                                   TS.hammersley(512).numpy())
 
 
+@pytest.mark.parametrize("n", [512, 2048, 1000])
+def test_hammersley_tables_bit_equal_jax(n):
+    i = np.arange(n, dtype=np.uint32) * np.uint32(2654435761)
+    np.testing.assert_array_equal(JS.radical_inverse_np(i),
+                                  TS.radical_inverse_np(i))
+    np.testing.assert_array_equal(JS.hammersley_np(n), TS.hammersley_np(n))
+    az = TS.hammersley_azimuth_sorted(n, "cpu")
+    assert az.dtype == torch.float32
+    np.testing.assert_array_equal(np.asarray(JS.hammersley_azimuth_sorted(n)),
+                                  az.numpy())
+    # the same sample set as hammersley (ordered by u2), whose values the
+    # port's device table keeps
+    np.testing.assert_array_equal(TS.hammersley(n).numpy(),
+                                  TS.hammersley_np(n))
+    assert (np.diff(az[:, 1].numpy()) >= 0).all()
+
+
 def test_row_keyed_samples_do_not_depend_on_batching():
     ids = torch.arange(1000, 1064)
     whole = TS.stratified_samples(64, 128, row_ids=ids, seed=7)

@@ -126,6 +126,41 @@ def test_texture_sample_and_gradient(tex, mode):
     assert float(t.grad.abs().sum()) > 0
 
 
+@pytest.mark.parametrize("boundary", ["clamp", "wrap"])
+def test_nearest_sample(tex, boundary):
+    a = JT.nearest_sample(jnp.asarray(tex["tex"]), jnp.asarray(tex["uv"]),
+                          boundary)
+    b = TT.nearest_sample(torch.from_numpy(tex["tex"]),
+                          torch.from_numpy(tex["uv"]), boundary)
+    _close(a, b)
+
+
+@pytest.mark.parametrize("max_mip_level", [None, 2])
+def test_texture_sample_mipmapped_and_gradient(tex, max_mip_level):
+    """build_mip_pyramid + compute_lod + texture_sample in one call on an
+    image-shaped uv map: the value and the gradient of <out, cotangent>
+    with respect to the texture."""
+    uv_img = tex["uv_img"] * 0.25  # footprints of a few texels: LOD > 0
+    cot = np.random.default_rng(6).standard_normal(
+        uv_img.shape[:-1] + (3,)).astype(np.float32)
+
+    def jf(t):
+        out = JT.texture_sample_mipmapped(t, jnp.asarray(uv_img),
+                                          max_mip_level)
+        return jnp.sum(out * cot), out
+
+    (_, out_j), g_j = jax.value_and_grad(jf, has_aux=True)(
+        jnp.asarray(tex["tex"]))
+    t = torch.tensor(tex["tex"], requires_grad=True)
+    out_t = TT.texture_sample_mipmapped(t, torch.from_numpy(uv_img),
+                                        max_mip_level)
+    (out_t * torch.from_numpy(cot)).sum().backward()
+    assert out_t.shape == uv_img.shape[:-1] + (3,)
+    _close(out_j, out_t)
+    _close(g_j, t.grad)
+    assert float(t.grad.abs().sum()) > 0
+
+
 def test_texture_sample_rejects_bad_rng(tex):
     pyr = TT.build_mip_pyramid(torch.from_numpy(tex["tex"]))
     with pytest.raises(ValueError, match="rng"):

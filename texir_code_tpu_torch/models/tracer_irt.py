@@ -51,7 +51,10 @@ from texir_code_tpu_torch.ops.pallas_culled import (
     tile_rows,
     wedge_rows,
 )
-from texir_code_tpu_torch.ops.sampling import generate_dir_soa
+from texir_code_tpu_torch.ops.sampling import (
+    generate_dir_soa,
+    hammersley_azimuth_sorted,
+)
 from texir_code_tpu_torch.ops.shading import irradiance_estimator_soa
 
 
@@ -249,6 +252,12 @@ class IrradianceTextureBaker:
         self.wedges = wedges
         self.mesh = mesh if mesh is not None else one_rank_mesh(
             tbl.planes[0].device)
+        # how a texel's directions become wedge rows: "octant" sorts them by
+        # world octant at run time (world-sign-pure wedges: the culling
+        # boxes are world-axis-aligned); "azimuth" draws them from the
+        # u2-sorted Hammersley table, so each wedge is an azimuth arc and
+        # nothing is sorted
+        self.chunk_mode = "octant"
         self.fan_block = 32
         # rows per independent exit group (0 = one group per fan block);
         # each group gets its own, tighter candidate list
@@ -290,7 +299,8 @@ class IrradianceTextureBaker:
 
     def _bake_culled_impl(self, points, normals, texel_ids, seed, samples=None):
         """Culled wedge path: one texel = one fan, its spp directions
-        octant-sorted and split into `wedges` rows; hits from the culled
+        octant-sorted (chunk_mode "octant") or drawn in azimuth order
+        ("azimuth") and split into `wedges` rows; hits from the culled
         walk with the atlas uv interpolated in the walk when the cluster
         rows carry per-triangle uv coefficients (radiance one RGBE fetch a
         ray), else prim + barycentrics (_fan_estimate_prim_rgbe)."""
@@ -298,11 +308,17 @@ class IrradianceTextureBaker:
         emit_uv = bool(scene.has_uv)
         nrm = tuple(normals[:, k] for k in range(3))
         g = self.wedges
-        dirs = generate_dir_soa(
-            nrm, self.spp, mode="uniform", samples=samples,
-            row_ids=texel_ids, seed=seed,
-        )
-        ds = sort_dirs_octant(dirs)
+        if self.chunk_mode == "azimuth":
+            ds = generate_dir_soa(
+                nrm, self.spp, mode="uniform", samples=samples,
+                row_ids=texel_ids, seed=seed,
+                base=hammersley_azimuth_sorted(self.spp, points.device),
+            )
+        else:
+            ds = sort_dirs_octant(generate_dir_soa(
+                nrm, self.spp, mode="uniform", samples=samples,
+                row_ids=texel_ids, seed=seed,
+            ))
         rows_d = tuple(wedge_rows(a, g) for a in ds)
         origins = tuple(
             points[:, k] + self.surface_eps * normals[:, k] for k in range(3)
@@ -428,7 +444,9 @@ class IrradianceTextureBaker:
         The random numbers are a pure function of (seed, global texel id),
         so results do not depend on batching.  samples: optional
         [B, spp, 2] uniforms that replace the drawn ones (parity tests feed
-        the JAX reference's own draws through it)."""
+        the JAX reference's own draws through it; under chunk_mode
+        "azimuth" the culled path takes them in the azimuth table's order,
+        as the JAX baker draws them)."""
         if self.cluster_scene is not None:
             return self._bake_culled_impl(points, normals, texel_ids, seed,
                                           samples)

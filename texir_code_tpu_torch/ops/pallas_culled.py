@@ -846,6 +846,45 @@ def cast_fans_culled(
     return RayHit(t=t[:tp], prim=prim[:tp], u=u[:tp], v=v[:tp])
 
 
+def cast_ray_fans_wedged(
+    scene: ClusterScene,
+    origins: Vec3s,
+    dirs: Vec3s,
+    wedges: int = 8,
+    t_min: float = 0.0,
+    fan_block: int = 8,
+    emit_uv: bool = False,
+    occluders=None,
+):
+    """A whole fan trace through direction wedges: sort, split, cull, walk.
+
+    Each fan's directions are octant-sorted (sort_dirs_octant), split into
+    `wedges` rows (wedge_rows) that share the fan's origin (tile_rows),
+    traced by cast_fans_culled (kernel B1 on the card: `shared_uv` with
+    emit_uv, else `shared_prim`; the plain walk on the CPU), and the hits
+    put back in fan order.  The JAX function's `interpret` flag (Pallas's
+    interpreter) has no counterpart here.
+
+    Args:
+        origins: 3×[T] per-fan origins; dirs: 3×[T, S] (S a multiple of
+            wedges).
+    Returns:
+        (RayHit [T, S], dirs_sorted 3×[T, S]): the hits are aligned with
+        the *sorted* directions, which the caller uses for estimation
+        (order-invariant estimators take them as they are).
+    """
+    g = wedges
+    ds = sort_dirs_octant(dirs)
+    rows_d = tuple(wedge_rows(a, g) for a in ds)
+    rows_o = tuple(tile_rows(a, g) for a in origins)
+    hit = cast_fans_culled(
+        scene, rows_o, rows_d, t_min=t_min, fan_block=fan_block,
+        emit_uv=emit_uv, occluders=occluders,
+    )
+    return RayHit(*(unwedge_rows(a, g) for a in
+                    (hit.t, hit.prim, hit.u, hit.v))), ds
+
+
 def twopass_stragglers(
     scene: ClusterScene, t1: torch.Tensor, count: torch.Tensor,
     dist: torch.Tensor, cut_frac: float, cap_frac: float, tp: int, tf: int,

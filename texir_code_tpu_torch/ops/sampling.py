@@ -20,6 +20,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 TINY_NUMBER = 1e-6
@@ -49,6 +50,42 @@ def hammersley(n: int, device=None) -> torch.Tensor:
     return torch.stack(
         [i.to(torch.float64) / float(n), radical_inverse(i)], dim=-1
     ).to(torch.float32)
+
+
+def radical_inverse_np(i: np.ndarray) -> np.ndarray:
+    """Base-2 radical inverse (van der Corput) by 32-bit reversal; numpy,
+    float64."""
+    bits = np.asarray(i, dtype=np.uint32)
+    bits = (bits << np.uint32(16)) | (bits >> np.uint32(16))
+    for shift, mask in ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F),
+                        (8, 0x00FF00FF)):
+        s, m = np.uint32(shift), np.uint32(mask)
+        bits = ((bits & m) << s) | ((bits >> s) & m)
+    return bits.astype(np.float64) * 2.3283064365386963e-10
+
+
+def hammersley_np(n: int) -> np.ndarray:
+    """[n, 2] Hammersley set (i/n, radical_inverse(i)) as float32, on the
+    host."""
+    i = np.arange(n, dtype=np.uint32)
+    return np.stack(
+        [i.astype(np.float64) / float(n), radical_inverse_np(i)], axis=-1
+    ).astype(np.float32)
+
+
+def hammersley_azimuth_sorted(n: int, device=None) -> torch.Tensor:
+    """The Hammersley set reordered by u2 (the azimuth coordinate), [n, 2]
+    float32 on `device`.
+
+    The same sample set as `hammersley`, so order-invariant estimators are
+    unaffected, but consecutive chunks of it map to contiguous azimuth
+    arcs of the hemisphere.  A row's toroidal shift rotates every arc by
+    the same amount, so each chunk stays an arc of the same sample count:
+    wedge rows with tight direction cones and no sort at run time (the
+    baker's chunk_mode "azimuth")."""
+    h = hammersley_np(n)
+    order = np.argsort(h[:, 1], kind="stable")
+    return torch.from_numpy(h[order]).to(device)
 
 
 def _hash32(x):

@@ -139,6 +139,27 @@ def bilinear_sample(
     return top * (1 - fy) + bot * fy
 
 
+def nearest_sample(
+    tex: torch.Tensor, uv: torch.Tensor, boundary: str = "clamp"
+) -> torch.Tensor:
+    """Nearest-texel fetch at uv ∈ [0,1]²: texel floor(uv·size), its index
+    wrapped ('wrap') or clamped (any other boundary) into the texture.
+
+    Args:
+        tex: [H, W, C]; uv: [..., 2] (u along the width).
+    Returns:
+        [..., C]
+    """
+    h, w = tex.shape[0], tex.shape[1]
+    x = torch.floor(uv[..., 0] * w).to(torch.int64)
+    y = torch.floor(uv[..., 1] * h).to(torch.int64)
+    if boundary == "wrap":
+        x, y = torch.remainder(x, w), torch.remainder(y, h)
+    else:
+        x, y = x.clamp(0, w - 1), y.clamp(0, h - 1)
+    return _gather2d(tex, y, x)
+
+
 def grid_sample(
     tex: torch.Tensor,
     grid: torch.Tensor,
@@ -338,3 +359,24 @@ def texture_sample(
     out_hi = _flat_pyramid_fetch(flat, offsets, widths, heights, hi, uv,
                                  boundary)
     return out_lo * (1.0 - frac) + out_hi * frac
+
+
+def texture_sample_mipmapped(
+    tex: torch.Tensor,
+    uv_img: torch.Tensor,
+    max_mip_level: Optional[int] = None,
+    boundary: str = "wrap",
+) -> torch.Tensor:
+    """Build the pyramid, take each pixel's LOD and sample trilinearly, in
+    one call (build_mip_pyramid + compute_lod + texture_sample).
+
+    Args:
+        tex: [H, W, C] base texture.
+        uv_img: [..., Himg, Wimg, 2] image-shaped uv map (the LOD needs the
+            image's neighbouring pixels).
+    Returns:
+        [..., Himg, Wimg, C]; gradients flow to tex through the pyramid.
+    """
+    pyramid = build_mip_pyramid(tex, max_levels=max_mip_level)
+    lod = compute_lod(uv_img, tex.shape[0], tex.shape[1])
+    return texture_sample(pyramid, uv_img, lod, boundary)

@@ -33,9 +33,19 @@ import torch
 from texir_code_tpu_torch.parallel.mesh import (
     DeviceMesh,
     all_gather_rows,
+    make_device_mesh,
     psum_replicated,
     shard_along,
 )
+
+
+def make_atlas_mesh(n_devices: Optional[int] = None,
+                    device=None) -> DeviceMesh:
+    """The mesh whose ranks share the atlas rows: the world's ranks, one
+    device each (make_device_mesh).  n_devices, when given, must match the
+    world's size; device: this rank's device (default: its card, and
+    raises on a host without one)."""
+    return make_device_mesh(n_devices, device=device)
 
 
 def _level_shapes(h: int, w: int, max_levels: Optional[int]) -> list:
