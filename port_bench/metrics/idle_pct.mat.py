@@ -1,0 +1,11 @@
+"""idle_pct.mat: share of the traced window in which no operation ran
+on the device, from the profiler's timeline."""
+
+UNIT = "%"
+MOVES = "mat_steps_per_s"
+
+
+def read(r):
+    if r.kind != "mat" or r.trace is None or r.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - r.trace.busy_s / r.trace.window_s)
