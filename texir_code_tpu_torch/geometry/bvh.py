@@ -29,6 +29,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from texir_code_tpu_torch import profiling
+
 
 SUPERNODE_WIDTH = 48
 
@@ -160,6 +162,7 @@ def _sah_split(
     return left, right
 
 
+@profiling.timed("pack", "bvh")
 def build_bvh(
     vertices: np.ndarray,
     faces: np.ndarray,

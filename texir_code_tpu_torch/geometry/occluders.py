@@ -20,6 +20,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from texir_code_tpu_torch import profiling
 from texir_code_tpu_torch.device import resolve_device
 
 # direction-cone minimum toward-plane component for a blocker to engage:
@@ -171,6 +172,7 @@ def _maximal_rectangles(cov: np.ndarray) -> List[Tuple[int, int, int, int]]:
     return sorted(rects)
 
 
+@profiling.timed("pack", "occluders")
 def extract_occluders(
     mesh,
     min_side_frac: float = 0.02,

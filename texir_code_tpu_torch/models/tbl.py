@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from texir_code_tpu_torch import profiling
 from texir_code_tpu_torch.device import resolve_device
 from texir_code_tpu_torch.ops.raycast import DeviceBVH, cast_rays_soa
 from texir_code_tpu_torch.ops.shading import rgb_to_intensity
@@ -63,6 +64,7 @@ class TBL:
         return TBL(self.uv_u, self.uv_v, planes, self.bvh)
 
 
+@profiling.timed("pack", "tbl")
 def build_tbl_from_flat(flat_bvh, mesh, texture, hdr_exposure: float = 0.0,
                         device="cuda") -> TBL:
     """TBL from a pre-built FlatBVH (one build shared by the TBL, the

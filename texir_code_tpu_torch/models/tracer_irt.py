@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from texir_code_tpu_torch import profiling
 from texir_code_tpu_torch.models.tbl import (
     TBL,
     bilinear_rgbe,
@@ -119,6 +120,7 @@ class GeometryTextures:
     valid: np.ndarray     # [R, R] bool — texel is covered by a triangle
 
 
+@profiling.timed("pack", "texels")
 def bake_geometry_textures(
     mesh, res: int, offset: float = 0.0, use_native: bool = True
 ) -> GeometryTextures:
@@ -303,27 +305,31 @@ class IrradianceTextureBaker:
         ("azimuth") and split into `wedges` rows; hits from the culled
         walk with the atlas uv interpolated in the walk when the cluster
         rows carry per-triangle uv coefficients (radiance one RGBE fetch a
-        ray), else prim + barycentrics (_fan_estimate_prim_rgbe)."""
+        ray), else prim + barycentrics (_fan_estimate_prim_rgbe).  Spans:
+        `bake.dirs` (the directions and the wedge rows), the trace's own,
+        `bake.estimate` (the estimator and the wedges' sum)."""
         scene = self.cluster_scene
         emit_uv = bool(scene.has_uv)
         nrm = tuple(normals[:, k] for k in range(3))
         g = self.wedges
-        if self.chunk_mode == "azimuth":
-            ds = generate_dir_soa(
-                nrm, self.spp, mode="uniform", samples=samples,
-                row_ids=texel_ids, seed=seed,
-                base=hammersley_azimuth_sorted(self.spp, points.device),
+        with profiling.span("bake.dirs"):
+            if self.chunk_mode == "azimuth":
+                ds = generate_dir_soa(
+                    nrm, self.spp, mode="uniform", samples=samples,
+                    row_ids=texel_ids, seed=seed,
+                    base=hammersley_azimuth_sorted(self.spp, points.device),
+                )
+            else:
+                ds = sort_dirs_octant(generate_dir_soa(
+                    nrm, self.spp, mode="uniform", samples=samples,
+                    row_ids=texel_ids, seed=seed,
+                ))
+            rows_d = tuple(wedge_rows(a, g) for a in ds)
+            origins = tuple(
+                points[:, k] + self.surface_eps * normals[:, k]
+                for k in range(3)
             )
-        else:
-            ds = sort_dirs_octant(generate_dir_soa(
-                nrm, self.spp, mode="uniform", samples=samples,
-                row_ids=texel_ids, seed=seed,
-            ))
-        rows_d = tuple(wedge_rows(a, g) for a in ds)
-        origins = tuple(
-            points[:, k] + self.surface_eps * normals[:, k] for k in range(3)
-        )
-        rows_o = tuple(tile_rows(a, g) for a in origins)
+            rows_o = tuple(tile_rows(a, g) for a in origins)
         if self.two_pass_cut is not None:
             hit = cast_fans_culled_twopass(
                 scene, rows_o, rows_d,
@@ -346,13 +352,15 @@ class IrradianceTextureBaker:
                 proxy=self.proxy_scene,
                 occluders=self.occluders,
             )
-        rows_n = tuple(tile_rows(a, g) for a in nrm)
-        if emit_uv:
-            part = self._fan_estimate_uv(hit.t, hit.u, hit.v, rows_d, rows_n)
-        else:
-            part = self._fan_estimate_prim_rgbe(hit, rows_d, rows_n)
-        t = points.shape[0]
-        return part.reshape(g, t, 3).sum(dim=0)
+        with profiling.span("bake.estimate"):
+            rows_n = tuple(tile_rows(a, g) for a in nrm)
+            if emit_uv:
+                part = self._fan_estimate_uv(hit.t, hit.u, hit.v, rows_d,
+                                             rows_n)
+            else:
+                part = self._fan_estimate_prim_rgbe(hit, rows_d, rows_n)
+            t = points.shape[0]
+            return part.reshape(g, t, 3).sum(dim=0)
 
     def _fan_estimate_uv(self, hit_t, uu, vv, dirs, normals_soa):
         """Estimator for the uv-emitting walk: the hit's atlas uv is
@@ -446,15 +454,15 @@ class IrradianceTextureBaker:
         [B, spp, 2] uniforms that replace the drawn ones (parity tests feed
         the JAX reference's own draws through it; under chunk_mode
         "azimuth" the culled path takes them in the azimuth table's order,
-        as the JAX baker draws them)."""
+        as the JAX baker draws them).  Under the span `bake.batch`."""
         if self.cluster_scene is not None:
-            return self._bake_culled_impl(points, normals, texel_ids, seed,
-                                          samples)
-        if self.fan_scene is not None:
-            return self._bake_fan_impl(points, normals, texel_ids, seed,
-                                       samples)
-        return self._bake_batch_traversal(points, normals, texel_ids, seed,
-                                          samples)
+            impl = self._bake_culled_impl
+        elif self.fan_scene is not None:
+            impl = self._bake_fan_impl
+        else:
+            impl = self._bake_batch_traversal
+        with profiling.span("bake.batch"):
+            return impl(points, normals, texel_ids, seed, samples)
 
     def _bake_batch_traversal(self, points, normals, texel_ids, seed,
                               samples=None):
@@ -498,7 +506,7 @@ class IrradianceTextureBaker:
         out = torch.zeros((padded, 3), dtype=torch.float32, device=dev)
         # batches whose two-pass trace took the full-trace branch
         self.overflowed_batches = []
-        twopass = cast_fans_culled_twopass.counts
+        twopass = profiling.counter("twopass")
         share = self.mesh.share(nb)
         mine = range(share.start, share.stop)
         for k, i in enumerate(mine):

@@ -33,6 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from texir_code_tpu_torch import profiling
 from texir_code_tpu_torch.geometry.bvh import FlatBVH
 from texir_code_tpu_torch.ops.raycast import RayHit, cast_rays_soa
 
@@ -86,6 +87,7 @@ class FanScene:
         return rec
 
     @classmethod
+    @profiling.timed("pack", "fan")
     def from_flat(cls, bvh: FlatBVH, triangle_uvs=None) -> "FanScene":
         """Args:
             triangle_uvs: optional [F*3, 2] per-corner uvs (mesh.triangle_uvs);

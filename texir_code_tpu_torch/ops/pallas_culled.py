@@ -34,7 +34,6 @@ nothing in it is Pallas.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
 from typing import Optional
@@ -42,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from texir_code_tpu_torch import profiling
 from texir_code_tpu_torch.device import resolve_device
 from texir_code_tpu_torch.ops.fan_raycast import (
     FAN_ROW_WIDTH_UV,
@@ -83,6 +83,7 @@ class ClusterScene:
         return int(self.rows3.shape[0])
 
     @classmethod
+    @profiling.timed("pack", "clusters")
     def from_fan(
         cls, fan: FanScene, lb: int = 32, dense: bool = False,
         split_planes=None, device="cuda",
@@ -350,7 +351,15 @@ def cull_blocks(
 
     occluders: optional geometry.occluders.OccluderSet of proven
     mesh-covered rectangles; clusters every ray of a group could reach only
-    through one are removed — exactly (see geometry.occluders)."""
+    through one are removed — exactly (see geometry.occluders).
+
+    Under the span `cull`; while a profiler records, the counts are held
+    as `cull.candidates` and groups x clusters added to `cull.pairs`."""
+    with profiling.span("cull"):
+        return _cull_blocks(scene, o_lo, o_hi, dirs, tf, occluders)
+
+
+def _cull_blocks(scene, o_lo, o_hi, dirs, tf, occluders):
     from texir_code_tpu_torch.geometry.occluders import occluder_blocked_clusters
 
     tp = dirs[0].shape[0]
@@ -418,6 +427,9 @@ def cull_blocks(
     order = torch.argsort(key, dim=1, stable=True)
     dist_sorted = torch.gather(key, 1, order)
     count = ok.sum(dim=1).to(torch.int32)
+    if profiling.recording():
+        profiling.counter("cull")["pairs"] += rb * c
+        profiling.hold("cull", "candidates", count)
     return (
         order.to(torch.int32)[:, None, :],
         count[:, None, None],
@@ -633,7 +645,7 @@ def culled_walk_cuda(
 
 
 # launches per kernel mode (walk_mode); callers reset it with .clear()
-culled_walk_cuda.launches = collections.Counter()
+culled_walk_cuda.launches = profiling.counter("culled_walk.launches")
 
 
 def culled_walk(
@@ -666,14 +678,17 @@ def culled_walk(
         or the atlas uv of the hit with emit_uv.
 
     On CUDA tensors this launches the CUDA kernel (culled_walk_cuda); on
-    CPU tensors it runs culled_walk_plain."""
+    CPU tensors it runs culled_walk_plain.  Under the span `walk`."""
     args = (count, cand, dist, t_cap, origins, dx, dy, dz, rows3, prims3, er,
             t_min, emit_uv, emit_prim, per_ray, seed, visits)
     if dx.device.type == "cuda":
-        return culled_walk_cuda(*args)
-    if dx.device.type == "cpu":
-        return culled_walk_plain(*args)
-    raise ValueError(f"culled_walk: unsupported device {dx.device}")
+        walk = culled_walk_cuda
+    elif dx.device.type == "cpu":
+        walk = culled_walk_plain
+    else:
+        raise ValueError(f"culled_walk: unsupported device {dx.device}")
+    with profiling.span("walk"):
+        return walk(*args)
 
 
 def _pad_rows(a: torch.Tensor, n: int, fill) -> torch.Tensor:
@@ -902,7 +917,8 @@ def twopass_stragglers(
         coherence); cap_rows, the straggler capacity in rows; n, the
         number of non-final rays (they overflow when n > cap_rows·R).
         A ray is final if its hit t <= cut, if its group's whole list
-        lies below cut, or if its row is padding."""
+        lies below cut, or if its row is padding.  Reading n is the
+        trace's one device sync, under the span `twopass.sync`."""
     tpad, r = t1.shape
     cut = float(np.float32(cut_frac) * np.float32(scene.diameter))
     ngru = tpad // er
@@ -916,7 +932,10 @@ def twopass_stragglers(
     cap_rows = max(tf, -(-int(round(cap_frac * tpad)) // tf) * tf)
     cap_rows = min(cap_rows, tpad)
     order = torch.argsort(final.reshape(-1).to(torch.int32), stable=True)
-    return order[:cap_rows * r], cap_rows, int((~final).sum())
+    stragglers = (~final).sum()
+    with profiling.span("twopass.sync"):
+        n = int(stragglers)
+    return order[:cap_rows * r], cap_rows, n
 
 
 def cast_fans_culled_twopass(
@@ -948,9 +967,12 @@ def cast_fans_culled_twopass(
 
     If the stragglers overflow cap_rows, everything is traced once in full
     instead (the JAX package's `lax.cond`; here a host branch, one device
-    sync per call).  `cast_fans_culled_twopass.counts` counts calls and
-    overflows.  cut_frac2 makes the re-trace a two-pass itself (the 3-pass
-    ladder), with cap_frac2 of the compacted rows as its capacity.
+    sync per call).  `cast_fans_culled_twopass.counts` (the counter
+    `twopass`) counts calls and overflows; while a profiler records, the
+    counter `twopass.rays` counts pass 1's rays and its stragglers.
+    Pass 2, or the full trace, runs under the span `twopass.retrace`.  cut_frac2 makes the re-trace a
+    two-pass itself (the 3-pass ladder), with cap_frac2 of the compacted
+    rows as its capacity.
 
     Why the hits equal the single pass's: a walk (the plain version's group
     exit, or the CUDA kernel's per-ray exit) stops a ray at the first
@@ -1006,43 +1028,52 @@ def cast_fans_culled_twopass(
 
     sel, cap_rows, n_stragglers = twopass_stragglers(
         scene, hit1.t, count, dist, cut_frac, cap_frac, tp, tf, er)
-    cap_rays = cap_rows * r
-    if n_stragglers > cap_rays:  # one device-to-host sync per call
-        counts["overflows"] += 1
-        h = cast_fans_culled(
-            scene, o_rows, d, t_min=t_min, fan_block=tf, exit_rows=exit_rows,
-            emit_uv=emit_uv, per_ray=per_ray, proxy=proxy,
-            occluders=occluders,
-        )
-        return RayHit(t=h.t[:tp], prim=h.prim[:tp], u=h.u[:tp], v=h.v[:tp])
+    if profiling.recording():
+        rays = profiling.counter("twopass.rays")
+        rays["pass1"] += tp * r
+        rays["stragglers"] += n_stragglers
+    with profiling.span("twopass.retrace"):
+        cap_rays = cap_rows * r
+        if n_stragglers > cap_rays:  # one device-to-host sync per call
+            counts["overflows"] += 1
+            h = cast_fans_culled(
+                scene, o_rows, d, t_min=t_min, fan_block=tf,
+                exit_rows=exit_rows, emit_uv=emit_uv, per_ray=per_ray,
+                proxy=proxy, occluders=occluders,
+            )
+            return RayHit(t=h.t[:tp], prim=h.prim[:tp], u=h.u[:tp],
+                          v=h.v[:tp])
 
-    d2 = tuple(a.reshape(-1)[sel].reshape(cap_rows, r) for a in d)
-    if per_ray:
-        o2 = tuple(a.reshape(-1)[sel].reshape(cap_rows, r) for a in o_rows)
-    else:
-        o2 = tuple(a[sel // r].reshape(cap_rows, r) for a in o_rows)
-    if cut_frac2 is not None:
-        hit2 = cast_fans_culled_twopass(
-            scene, o2, d2, t_min=t_min, fan_block=tf, exit_rows=exit_rows,
-            emit_uv=emit_uv, per_ray=True, proxy=proxy, cut_frac=cut_frac2,
-            cap_frac=cap_frac2, occluders=occluders,
-        )
-    else:
-        hit2 = cast_fans_culled(
-            scene, o2, d2, t_min=t_min, fan_block=tf, exit_rows=exit_rows,
-            emit_uv=emit_uv, per_ray=True, proxy=proxy, occluders=occluders,
-        )
+        d2 = tuple(a.reshape(-1)[sel].reshape(cap_rows, r) for a in d)
+        if per_ray:
+            o2 = tuple(a.reshape(-1)[sel].reshape(cap_rows, r)
+                       for a in o_rows)
+        else:
+            o2 = tuple(a[sel // r].reshape(cap_rows, r) for a in o_rows)
+        if cut_frac2 is not None:
+            hit2 = cast_fans_culled_twopass(
+                scene, o2, d2, t_min=t_min, fan_block=tf,
+                exit_rows=exit_rows, emit_uv=emit_uv, per_ray=True,
+                proxy=proxy, cut_frac=cut_frac2, cap_frac=cap_frac2,
+                occluders=occluders,
+            )
+        else:
+            hit2 = cast_fans_culled(
+                scene, o2, d2, t_min=t_min, fan_block=tf,
+                exit_rows=exit_rows, emit_uv=emit_uv, per_ray=True,
+                proxy=proxy, occluders=occluders,
+            )
 
-    # re-traced final rays that fill the capacity come out unchanged, so
-    # all cap_rays slots scatter back
-    def put(a1, a2):
-        out = a1.reshape(-1).clone()
-        out[sel] = a2.reshape(-1)
-        return out.reshape(tpad, r)[:tp]
+        # re-traced final rays that fill the capacity come out unchanged,
+        # so all cap_rays slots scatter back
+        def put(a1, a2):
+            out = a1.reshape(-1).clone()
+            out[sel] = a2.reshape(-1)
+            return out.reshape(tpad, r)[:tp]
 
-    return RayHit(t=put(hit1.t, hit2.t), prim=put(hit1.prim, hit2.prim),
-                  u=put(hit1.u, hit2.u), v=put(hit1.v, hit2.v))
+        return RayHit(t=put(hit1.t, hit2.t), prim=put(hit1.prim, hit2.prim),
+                      u=put(hit1.u, hit2.u), v=put(hit1.v, hit2.v))
 
 
 # calls and overflows (full-trace branch) since the last .clear()
-cast_fans_culled_twopass.counts = collections.Counter()
+cast_fans_culled_twopass.counts = profiling.counter("twopass")

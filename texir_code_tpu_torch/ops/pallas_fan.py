@@ -22,12 +22,12 @@ nothing in it is Pallas.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 
 import torch
 
+from texir_code_tpu_torch import profiling
 from texir_code_tpu_torch.ops.fan_raycast import (
     FAN_ROW_WIDTH,
     FAN_ROW_WIDTH_UV,
@@ -172,7 +172,7 @@ def fan_stream_cuda(rows, origins, dx, dy, dz, t_min: float = 0.0,
 
 
 # launches per kernel mode (stream_mode); callers reset it with .clear()
-fan_stream_cuda.launches = collections.Counter()
+fan_stream_cuda.launches = profiling.counter("fan_stream.launches")
 
 
 def fan_stream(rows, origins, dx, dy, dz, t_min: float = 0.0,

@@ -25,6 +25,8 @@ from typing import Dict
 
 import torch
 
+from texir_code_tpu_torch import profiling
+
 
 def scatter_accumulate_plain(idx: torch.Tensor, g: torch.Tensor,
                              num_rows: int) -> torch.Tensor:
@@ -149,7 +151,7 @@ def scatter_accumulate_cuda(idx: torch.Tensor, g: torch.Tensor,
 
 
 # launches per kernel mode (scatter_mode); callers reset it with .clear()
-scatter_accumulate_cuda.launches = collections.Counter()
+scatter_accumulate_cuda.launches = profiling.counter("scatter_acc.launches")
 
 
 def scatter_accumulate(idx: torch.Tensor, g: torch.Tensor, num_rows: int,

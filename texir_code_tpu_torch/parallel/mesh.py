@@ -33,11 +33,12 @@ from typing import List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from texir_code_tpu_torch import profiling
 from texir_code_tpu_torch.parallel.multihost import local_rank, process_local_slice
 
 # calls and bytes of each collective (keys "<op>" and "<op>_bytes");
 # callers reset it with .clear()
-COUNTS: collections.Counter = collections.Counter()
+COUNTS: collections.Counter = profiling.counter("collectives")
 
 
 def _count(op: str, t: torch.Tensor) -> None:

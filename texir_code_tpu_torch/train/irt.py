@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from texir_code_tpu_torch import profiling
 from texir_code_tpu_torch.config import Config
 from texir_code_tpu_torch.data import hdrio
 from texir_code_tpu_torch.device import resolve_device
@@ -131,11 +132,7 @@ class IrrTextureRunner:
     def run(self) -> np.ndarray:
         from texir_code_tpu_torch.ops.postprocess import atrous_denoise, pad_texture
 
-        from texir_code_tpu_torch.ops.pallas_culled import (
-            cast_fans_culled_twopass,
-        )
-
-        twopass = cast_fans_culled_twopass.counts
+        twopass = profiling.counter("twopass")
         twopass.clear()
         t0 = time.time()
         tex = self.baker.bake(self._geom, self.generator, progress=True)
